@@ -1,0 +1,40 @@
+"""icra20_hand_object_pose_tpu_torch — the PyTorch/CUDA port of
+icra20_hand_object_pose_tpu, the occlusion-aware 6-DoF pose tracker of
+objects grasped by adaptive hands.
+
+It mirrors the JAX package's layout and names (utils/, ops/, models/,
+datasets/) and runs the tracked frame (`Tracker.step` in track mode) on a
+CUDA device, with the fused nearest-neighbour + gather search as a CUDA
+kernel (ops/knn_cuda.py, csrc/nn_gather.cu). It imports torch, never jax.
+"""
+import torch
+
+from .utils.config import (
+    CameraIntrinsics,
+    EstimatorConfig,
+    HandConfig,
+    IcpConfig,
+    PsoConfig,
+    ScoreConfig,
+    TrackerConfig,
+    load_yaml,
+)
+
+# Distances and GN sums stay in true FP32: TF32, like bf16, flips
+# nearest neighbours at millimetre scale.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CameraIntrinsics",
+    "EstimatorConfig",
+    "HandConfig",
+    "IcpConfig",
+    "PsoConfig",
+    "ScoreConfig",
+    "TrackerConfig",
+    "load_yaml",
+    "__version__",
+]
