@@ -28,7 +28,7 @@ def object_from_numpy(
     *,
     model_pts, model_normals, render_pts, render_normals, render_w,
     symmetries, diameter: float, centroid=None, mesh=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ObjectModel:
     """ObjectModel from its arrays: model/render clouds [N,3], render_w [Nr],
     symmetries [S,4,4], diameter (meters); `mesh` (any object with
@@ -43,7 +43,7 @@ def object_from_numpy(
 
 def hand_from_numpy(
     *, link_pts, link_normals, origins, links, n_joints: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> HandModel:
     """HandModel from its link clouds [L,Pl,3], normals [L,Pl,3], joint
     origins [L,4,4] and link tree: `links` is a sequence of objects with the

@@ -1,12 +1,14 @@
-// Fused nearest-neighbour search + correspondence gather (kernel K1).
+// Nearest-neighbour search, with (K1) or without (K2) the correspondence
+// gather.
 //
-// Replaces the Pallas kernel `knn_pallas.nn_gather_batched`
-// (icra20_hand_object_pose_tpu/ops/knn_pallas.py, `_make_gather_kernel`).
-// For every particle p and query point s it finds the reference point with
-// the smallest exact FP32 squared distance and returns that distance, the
-// first minimal index, and the matched point and normal at that index.
+// K1 replaces the Pallas kernel `knn_pallas.nn_gather_batched`
+// (icra20_hand_object_pose_tpu/ops/knn_pallas.py, `_make_gather_kernel`);
+// K2 replaces `knn_pallas.nn_batched` (`_make_kernel`). For every particle p
+// and query point s both find the reference point with the smallest exact
+// FP32 squared distance and return that distance and the first minimal
+// index; K1 also returns the matched point and normal at that index.
 //
-// What bounds it on Hopper: FP32 work on the CUDA cores. Each (query, ref)
+// What bounds them on Hopper: FP32 work on the CUDA cores. Each (query, ref)
 // pair costs 3 subtractions, 3 multiplies, 2 adds and a compare (about 9
 // operations), while a point is about 16 bytes (12 of coordinates, plus its
 // share of the gathered normal) read once per block. At the in-scan shape
@@ -25,8 +27,9 @@
 //   - indices are scanned in increasing order with a strict `<`, so the
 //     first minimal index wins, as in `torch.argmin` and `jnp.argmin`;
 //   - the ragged last tile is bounded by Nm, no padding sentinel;
-//   - after the search, the matched point and normal are read from global
-//     memory at the winning index (no one-hot product).
+//   - K1 only: after the search, the matched point and normal are read from
+//     global memory at the winning index (no one-hot product). K2 is the
+//     same kernel with the gather compiled out (template flag).
 //
 // The query is either shared by all particles (Pq == 1) or per particle
 // (Pq == P). Plain C interface, loaded with ctypes; the launch goes on the
@@ -40,15 +43,16 @@ namespace {
 constexpr int kQueryTile = 128;  // threads per block, one query each
 constexpr int kRefTile = 256;    // reference points staged per shared tile
 
+template <bool kGather>
 __global__ void __launch_bounds__(kQueryTile)
-nn_gather_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
-                 const float* __restrict__ ref_pts,    // [P, Nm, 3]
-                 const float* __restrict__ ref_nrm,    // [P, Nm, 3]
-                 float* __restrict__ matched,          // [P, Ns, 3]
-                 float* __restrict__ mnormal,          // [P, Ns, 3]
-                 float* __restrict__ d2_out,           // [P, Ns]
-                 int* __restrict__ idx_out,            // [P, Ns]
-                 int shared_query, int Ns, int Nm) {
+nn_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
+          const float* __restrict__ ref_pts,    // [P, Nm, 3]
+          const float* __restrict__ ref_nrm,    // [P, Nm, 3] (K1 only)
+          float* __restrict__ matched,          // [P, Ns, 3] (K1 only)
+          float* __restrict__ mnormal,          // [P, Ns, 3] (K1 only)
+          float* __restrict__ d2_out,           // [P, Ns]
+          int* __restrict__ idx_out,            // [P, Ns]
+          int shared_query, int Ns, int Nm) {
   __shared__ float tile[3 * kRefTile];
 
   const int p = blockIdx.x;
@@ -83,29 +87,45 @@ nn_gather_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
   if (!active) return;
 
   const size_t out = (size_t)p * Ns + s;
-  const size_t src = ((size_t)p * Nm + best_i) * 3;
   d2_out[out] = best;
   idx_out[out] = best_i;
-  matched[out * 3 + 0] = ref_pts[src + 0];
-  matched[out * 3 + 1] = ref_pts[src + 1];
-  matched[out * 3 + 2] = ref_pts[src + 2];
-  mnormal[out * 3 + 0] = ref_nrm[src + 0];
-  mnormal[out * 3 + 1] = ref_nrm[src + 1];
-  mnormal[out * 3 + 2] = ref_nrm[src + 2];
+  if constexpr (kGather) {
+    const size_t src = ((size_t)p * Nm + best_i) * 3;
+    matched[out * 3 + 0] = ref_pts[src + 0];
+    matched[out * 3 + 1] = ref_pts[src + 1];
+    matched[out * 3 + 2] = ref_pts[src + 2];
+    mnormal[out * 3 + 0] = ref_nrm[src + 0];
+    mnormal[out * 3 + 1] = ref_nrm[src + 1];
+    mnormal[out * 3 + 2] = ref_nrm[src + 2];
+  }
+}
+
+bool bad_shape(int P, int Pq, int Ns, int Nm) {
+  return P <= 0 || Ns <= 0 || Nm <= 0 || (Pq != 1 && Pq != P);
 }
 
 }  // namespace
 
+// K1: search + gather.
 extern "C" int nn_gather_launch(const float* query, const float* ref_pts,
                                 const float* ref_nrm, float* matched,
                                 float* mnormal, float* d2, int* idx, int P,
                                 int Pq, int Ns, int Nm, void* stream) {
-  if (P <= 0 || Ns <= 0 || Nm <= 0 || (Pq != 1 && Pq != P)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(P, Pq, Ns, Nm)) return (int)cudaErrorInvalidValue;
   const dim3 grid(P, (Ns + kQueryTile - 1) / kQueryTile);
-  nn_gather_kernel<<<grid, kQueryTile, 0, (cudaStream_t)stream>>>(
+  nn_kernel<true><<<grid, kQueryTile, 0, (cudaStream_t)stream>>>(
       query, ref_pts, ref_nrm, matched, mnormal, d2, idx, Pq == 1 ? 1 : 0, Ns,
+      Nm);
+  return (int)cudaGetLastError();
+}
+
+// K2: search only.
+extern "C" int nn_launch(const float* query, const float* ref_pts, float* d2,
+                         int* idx, int P, int Pq, int Ns, int Nm, void* stream) {
+  if (bad_shape(P, Pq, Ns, Nm)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(P, (Ns + kQueryTile - 1) / kQueryTile);
+  nn_kernel<false><<<grid, kQueryTile, 0, (cudaStream_t)stream>>>(
+      query, ref_pts, nullptr, nullptr, nullptr, d2, idx, Pq == 1 ? 1 : 0, Ns,
       Nm);
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,9 @@
 
 The kinematic tree is a Python loop over the links; joint angles are
 tensors with any leading batch shape, so the K sampled finger configs
-are one batched FK instead of a vmap. `refine_base`, `segment_mask`,
-`depth`, `depth_union`, `load_hand_spec` and `make_model_o_hand` are not
-ported yet (the estimator makes its hand masks itself).
+are one batched FK instead of a vmap. `segment_mask`, `depth`,
+`depth_union`, `load_hand_spec` and `make_model_o_hand` are not ported yet
+(the estimator makes its hand masks itself).
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ class HandModel:
 
     def __init__(self, links: list[HandLink], n_joints: int,
                  points_per_link: int = 256,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         pts, nrms = [], []
         for li, link in enumerate(links):
             p, n = link.mesh.sample_surface(points_per_link, seed=1000 + li)
@@ -61,7 +61,7 @@ class HandModel:
     @classmethod
     def from_arrays(cls, links: list[HandLink], n_joints: int, link_pts,
                     link_normals, origins,
-                    device: torch.device | str = "cpu") -> "HandModel":
+                    device: torch.device | str = "cuda") -> "HandModel":
         """Build from precomputed link clouds (see convert.hand_from_numpy)."""
         hand = cls.__new__(cls)
         hand._assign(links, n_joints, link_pts, link_normals, origins, device)
@@ -126,6 +126,56 @@ class HandModel:
         qs = torch.clamp(q_nominal[None] + noise, 0.0, math.pi)
         return self.cloud(base_pose, qs)
 
+    # -- hand-mount calibration refinement ------------------------------------
+
+    def refine_base(
+        self,
+        gen,
+        depth: torch.Tensor,     # [H,W] observed depth, meters
+        valid: torch.Tensor,     # [H,W] bool
+        base0: torch.Tensor,     # [4,4] reported hand base (camera frame)
+        q: torch.Tensor,         # [J] nominal joint angles
+        *,
+        fx: float, fy: float, cx: float, cy: float,
+        height: int, width: int,
+        iters: int = 3,
+        candidates: int = 16,
+        rot_sigma: float = 0.06,
+        trans_sigma: float = 0.012,
+        q_sigma: float = 0.12,
+        anneal: float = 0.5,
+        tau: float = 0.008,
+        radius: int = 3,
+    ) -> torch.Tensor:
+        """Annealed render-space search correcting the hand BASE pose (the
+        hand-mount calibration error the sampled finger configs cannot
+        absorb). Each round scores `candidates` bases, the incumbent in
+        slot 0 and the rest perturbed around it, each with its own sampled
+        joint config, by `config_agreement` against the observed depth;
+        the sigmas shrink by `anneal` per round. Returns the winning base.
+        Draws per round: the perturbation's rotation and translation
+        normals, each (candidates - 1, 3), then the joint normals
+        (candidates, J)."""
+        best_b, best_q = base0, q
+        sr, st, sq = rot_sigma, trans_sigma, q_sigma
+        for _ in range(iters):
+            cands = torch.cat([
+                best_b[None],
+                se3.perturb_pose(gen, best_b, sr, st, shape=(candidates - 1,)),
+            ])
+            qn = rng.normal(gen, (candidates, self.n_joints)) * sq
+            qn[0] = 0.0
+            cq = torch.clamp(best_q[None] + qn, 0.0, math.pi)
+            agree = self.config_agreement(
+                self.cloud(cands, cq), depth, valid,
+                fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
+                tau=tau, radius=radius,
+            )
+            i = torch.argmax(agree)
+            best_b, best_q = cands[i], cq[i]
+            sr, st, sq = sr * anneal, st * anneal, sq * anneal
+        return best_b
+
     # -- observation-driven configuration weighting ---------------------------
 
     @staticmethod
@@ -180,7 +230,7 @@ class HandModel:
 
 
 def make_t42_hand(points_per_link: int = 256,
-                  device: torch.device | str = "cpu") -> HandModel:
+                  device: torch.device | str = "cuda") -> HandModel:
     """Two-finger underactuated gripper approximating the OpenHand T42
     (palm at the origin, fingers along +z, joint axes along y; one tendon
     angle per finger, distal joints coupled at 0.7x with a rest curl)."""

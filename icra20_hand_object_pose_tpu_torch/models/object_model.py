@@ -23,7 +23,7 @@ class ObjectModel:
         model_points: int = 1024,
         render_points: int = 2048,
         seed: int = 0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         p, n = mesh.sample_surface(model_points, seed=seed)
         rp, rn = mesh.sample_surface(render_points, seed=seed + 1)
@@ -40,7 +40,7 @@ class ObjectModel:
     def from_arrays(cls, *, model_pts, model_normals, render_pts,
                     render_normals, render_w, symmetries, diameter,
                     centroid=None, mesh: meshio.Mesh | None = None,
-                    device: torch.device | str = "cpu") -> "ObjectModel":
+                    device: torch.device | str = "cuda") -> "ObjectModel":
         """Build from precomputed arrays (see convert.object_from_numpy)."""
         obj = cls.__new__(cls)
         obj._assign(mesh=mesh, model_pts=model_pts, model_normals=model_normals,

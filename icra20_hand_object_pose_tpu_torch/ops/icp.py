@@ -5,9 +5,10 @@ ops/icp.py).
 to the posed model cloud of every particle, then left-multiplies each pose
 by exp(xi) about the weighted scene centroid. The iteration count is fixed
 and converged particles freeze, as in the reference. Correspondences come
-from `corr_fn` (kernel K1, ops/knn_cuda.make_corr_fn) or the dense
-oracle. The reference's fused GN kernel path (`gn_fn`) is not ported
-yet.
+from `corr_fn` (kernel K1, ops/knn_cuda.make_corr_fn), from `nn_fn` (kernel
+K2, make_nn_fn) followed by an indexed gather, or from the dense oracle;
+`gn_fn` (kernel K3, make_gn_fn) fuses the search with the gates and the
+normal-equation build.
 """
 from __future__ import annotations
 
@@ -38,11 +39,15 @@ def correspondence_weights(
     min_normal_cos: float,
 ) -> torch.Tensor:
     """Gate correspondences by distance, normal compatibility and padding:
-    weights in {0, 1} * scene_weights."""
+    weights in {0, 1} * scene_weights. The dot products sum left to right,
+    as kernel K3 does, so both gate alike."""
+    def dot(a, b):
+        return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
     w = scene_weights * (d2 < max_corresp_dist * max_corresp_dist)
-    ncos = torch.sum(scene_normals * model_normals_cam, dim=-1)
-    have_n = (torch.sum(scene_normals * scene_normals, -1) > 0.5) & (
-        torch.sum(model_normals_cam * model_normals_cam, -1) > 0.5
+    ncos = dot(scene_normals, model_normals_cam)
+    have_n = (dot(scene_normals, scene_normals) > 0.5) & (
+        dot(model_normals_cam, model_normals_cam) > 0.5
     )
     return w * torch.where(have_n, (ncos > min_normal_cos).to(w.dtype), 1.0)
 
@@ -119,20 +124,36 @@ def icp_batched(
     step_scale: float = 1.0,
     converge_tol: float = 1e-6,
     gn_reps: int = 1,
+    nn_fn: Callable | None = None,
     corr_fn: Callable | None = None,
+    gn_fn: Callable | None = None,
     support_tau: float = 0.0,
 ) -> tuple[torch.Tensor, IcpStats]:
     """Batched point-to-plane ICP over the particle axis: each iteration is
     one [P,Ns,Nm] correspondence search plus `gn_reps` GN solves on the same
     matched pairs (re-posed by each increment).
 
-    corr_fn(scene [Ns,3], posed [P,Nm,3], posed_normals [P,Nm,3]) ->
-    (matched, mnormal, d2, idx); default: the dense oracle. support_tau > 0 reports
-    IcpStats.support from the last search."""
+    Correspondences, first given wins:
+    - corr_fn(scene [Ns,3], posed [P,Nm,3], posed_normals [P,Nm,3]) ->
+      (matched, mnormal, d2, idx);
+    - nn_fn(scene [Ns,3], posed [P,Nm,3]) -> (idx, d2), then a gather;
+    - default: the dense oracle.
+    gn_fn(scene_c, scene_normals, scene_w, posed_c [P,Nm,3], posed_normals)
+    -> (H, g, wsum, hits, wrr) replaces all of them with one fused call per
+    iteration; it takes gn_reps=1 only, and its baked gates must agree with
+    this call's. support_tau > 0 reports IcpStats.support from the last
+    search."""
     P = poses0.shape[0]
     min_cos = math.cos(math.radians(normal_angle_max_deg))
     wsum = torch.clamp(torch.sum(scene_weights), min=1e-9)
     anchor = torch.sum(scene_pts * scene_weights[:, None], dim=0) / wsum
+    if gn_fn is not None:
+        return _icp_fused(poses0, scene_pts - anchor, scene_normals,
+                          scene_weights, model_pts, model_normals, anchor, wsum,
+                          iters=iters, max_corresp_dist=max_corresp_dist,
+                          min_cos=min_cos, damping=damping,
+                          step_scale=step_scale, converge_tol=converge_tol,
+                          gn_reps=gn_reps, gn_fn=gn_fn, support_tau=support_tau)
 
     def _support(d2):
         if support_tau <= 0:
@@ -150,7 +171,10 @@ def icp_batched(
         if corr_fn is not None:
             matched, mnorm, d2, _ = corr_fn(scene_pts, posed, mnorm_all)
         else:
-            idx, d2 = knn.nn(scene_pts, posed)                    # [P,Ns]
+            if nn_fn is not None:
+                idx, d2 = nn_fn(scene_pts, posed)                 # [P,Ns]
+            else:
+                idx, d2 = knn.nn(scene_pts, posed)
             sel = idx.to(torch.int64)[..., None].expand(-1, -1, 3)
             matched = torch.gather(posed, 1, sel)
             mnorm = torch.gather(mnorm_all, 1, sel)
@@ -177,6 +201,52 @@ def icp_batched(
                            support=support)
 
 
+def _icp_fused(poses0, scene_c, scene_normals, scene_weights, model_pts,
+               model_normals, anchor, wsum, *, iters, max_corresp_dist,
+               min_cos, damping, step_scale, converge_tol, gn_reps, gn_fn,
+               support_tau) -> tuple[torch.Tensor, IcpStats]:
+    """icp_batched's gn_fn path: one fused search + normal-equation build
+    and one solve per iteration (the matched points never leave gn_fn)."""
+    if gn_reps != 1:
+        raise ValueError(
+            "gn_fn path runs exactly one linearization per search; "
+            f"gn_reps={gn_reps} is not supported (re-linearizing needs "
+            "the matched points the fused kernel does not emit).")
+    baked = (getattr(gn_fn, "maxd2", None), getattr(gn_fn, "min_cos", None),
+             getattr(gn_fn, "tau2", None))
+    if baked[0] is not None:
+        want = (max_corresp_dist ** 2, min_cos, support_tau ** 2)
+        for name, b, w in zip(("maxd2", "min_cos", "tau2"), baked, want):
+            if abs(b - w) > 1e-9 * max(1.0, abs(w)):
+                raise ValueError(
+                    f"gn_fn was built with {name}={b} but icp_batched was "
+                    f"called with a value implying {name}={w}; construct "
+                    "make_gn_fn with matching gates.")
+    poses = poses0
+    frozen = torch.zeros((poses0.shape[0],), dtype=torch.bool,
+                         device=poses0.device)
+    rmse = inliers = support = None
+    eye = torch.eye(6, dtype=poses0.dtype, device=poses0.device)
+    for _ in range(iters):
+        posed_c = se3.transform_points(poses, model_pts) - anchor
+        mnorm = se3.rotate_vectors(poses, model_normals)
+        H, g, wsum_w, hits, wrr = gn_fn(scene_c, scene_normals, scene_weights,
+                                        posed_c, mnorm)
+        tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
+        lam = damping * (tr / 6.0 + 1e-12)
+        xi = cholesky_solve6(H + lam[:, None, None] * eye, g) * step_scale
+        xi = torch.where((wsum_w > 6.0)[:, None], xi, 0.0)
+        step = torch.sum(xi * xi, dim=-1)
+        frozen = frozen | (step < converge_tol * converge_tol)
+        xi = torch.where(frozen[:, None], 0.0, xi)
+        poses = se3.apply_twist_about(xi, poses, anchor)
+        rmse = torch.sqrt(wrr / torch.clamp(wsum_w, min=1e-9))
+        inliers = wsum_w
+        support = hits / wsum
+    return poses, IcpStats(rmse=rmse, inliers=inliers, converged=frozen,
+                           support=support)
+
+
 def scene_support(
     poses: torch.Tensor,          # [P,4,4]
     scene_pts: torch.Tensor,      # [Ns,3]
@@ -185,6 +255,7 @@ def scene_support(
     model_normals: torch.Tensor,  # [Nm,3] (only consumed by corr_fn)
     *,
     tau: float,
+    nn_fn: Callable | None = None,
     corr_fn: Callable | None = None,
 ) -> torch.Tensor:
     """Observation-side support: weighted fraction of scene points within
@@ -193,6 +264,8 @@ def scene_support(
     if corr_fn is not None:
         _, _, d2, _ = corr_fn(scene_pts, posed,
                               se3.rotate_vectors(poses, model_normals))
+    elif nn_fn is not None:
+        _, d2 = nn_fn(scene_pts, posed)
     else:
         _, d2 = knn.nn(scene_pts, posed)
     hit = (d2 < tau * tau).to(d2.dtype)

@@ -7,8 +7,10 @@ in-scan ICP on fixed-size subsets, projective scoring plus the
 scene-support term, global best, elite resample. After the scan: explorer
 pulls, axial slides, the full-cloud ICP polish, fine-tier scoring and the
 score-only finisher. Every perturbation draws from `gen` (a
-torch.Generator or injected draws). Sharding (`axis_name`) and pixel-mode
-scoring are not ported yet.
+torch.Generator or injected draws). With `gn_fn` (kernel K3) the in-scan
+refine and the explorer pulls run the fused search + normal-equation
+path; the polish keeps `corr_fn`/`nn_fn`. Sharding (`axis_name`) and
+pixel-mode scoring are not ported yet.
 """
 from __future__ import annotations
 
@@ -139,7 +141,9 @@ def pso(
     pso_cfg: PsoConfig = PsoConfig(),
     icp_cfg: IcpConfig = IcpConfig(),
     score_cfg: ScoreConfig = ScoreConfig(),
+    nn_fn=None,
     corr_fn=None,
+    gn_fn=None,
     observed_neutral: torch.Tensor | None = None,
     observed_hi: tuple | None = None,
     render_vis: torch.Tensor | None = None,
@@ -213,8 +217,9 @@ def pso(
             normal_angle_max_deg=icp_cfg.normal_angle_max_deg,
             damping=icp_cfg.damping,
             step_scale=icp_cfg.step_scale,
-            gn_reps=icp_cfg.gn_reps,
-            corr_fn=corr_fn,
+            # the fused kernel runs one linearization per search
+            gn_reps=1 if gn_fn is not None else icp_cfg.gn_reps,
+            nn_fn=nn_fn, corr_fn=corr_fn, gn_fn=gn_fn,
             support_tau=cov_tau if use_cov else 0.0,
         )
         return refined, st.support
@@ -223,7 +228,7 @@ def pso(
         return icp_mod.scene_support(
             poses, scene_pts[:ks], scene_weights[:ks],
             model_pts[:km], model_normals[:km],
-            tau=cov_tau, corr_fn=corr_fn,
+            tau=cov_tau, nn_fn=nn_fn, corr_fn=corr_fn,
         )
 
     def swarm_best(poses, fitness, coverage):
@@ -321,7 +326,7 @@ def pso(
         damping=icp_cfg.damping,
         step_scale=icp_cfg.step_scale,
         gn_reps=icp_cfg.gn_reps,
-        corr_fn=corr_fn,
+        nn_fn=nn_fn, corr_fn=corr_fn,
         support_tau=cov_tau if use_cov else 0.0,
     )
     f_c, c_c = score_fn_hi(cands)
@@ -329,7 +334,7 @@ def pso(
     if use_cov:
         supp_c = icp_mod.scene_support(
             cands, scene_pts, scene_weights, model_pts, model_normals,
-            tau=cov_tau, corr_fn=corr_fn,
+            tau=cov_tau, nn_fn=nn_fn, corr_fn=corr_fn,
         )
         f_c = f_c + cov_w * (supp_c - 1.0)
         f_p = f_p + cov_w * (pol_stats.support - 1.0)

@@ -35,6 +35,7 @@ def test_object_from_numpy_bitwise(kind):
     obj = convert.object_from_numpy(
         **{f: np.asarray(getattr(ref, f)) for f in _OBJ_FIELDS},
         diameter=ref.diameter, centroid=ref.centroid, mesh=ref.mesh,
+        device="cpu",
     )
     for f in _OBJ_FIELDS:
         _bitwise(getattr(obj, f).numpy(), getattr(ref, f))
@@ -46,7 +47,7 @@ def test_object_from_numpy_bitwise(kind):
 def test_object_sampled_natively_bitwise(kind):
     ref = _jax_object(kind)
     obj = ObjectModel(meshio.make_test_object(kind), model_points=256,
-                      render_points=512)
+                      render_points=512, device="cpu")
     for f in _OBJ_FIELDS:
         _bitwise(getattr(obj, f).numpy(), getattr(ref, f))
 
@@ -57,7 +58,7 @@ def test_hand_from_numpy_bitwise():
         link_pts=np.asarray(ref._link_pts),
         link_normals=np.asarray(ref._link_normals),
         origins=np.asarray(ref._origins), links=ref.links,
-        n_joints=ref.n_joints,
+        n_joints=ref.n_joints, device="cpu",
     )
     _bitwise(hand._link_pts.numpy(), ref._link_pts)
     _bitwise(hand._link_normals.numpy(), ref._link_normals)
@@ -70,7 +71,7 @@ def test_hand_from_numpy_bitwise():
 
 def test_t42_sampled_natively_bitwise():
     ref = jax_t42(points_per_link=64)
-    hand = make_t42_hand(points_per_link=64)
+    hand = make_t42_hand(points_per_link=64, device="cpu")
     _bitwise(hand._link_pts.numpy(), ref._link_pts)
     _bitwise(hand._link_normals.numpy(), ref._link_normals)
     _bitwise(hand._origins.numpy(), ref._origins)

@@ -35,13 +35,13 @@ def setup():
         **{f: np.asarray(getattr(obj, f)) for f in (
             "model_pts", "model_normals", "render_pts", "render_normals",
             "render_w", "symmetries")},
-        diameter=obj.diameter, mesh=obj.mesh,
+        diameter=obj.diameter, mesh=obj.mesh, device="cpu",
     )
     thand = convert.hand_from_numpy(
         link_pts=np.asarray(hand._link_pts),
         link_normals=np.asarray(hand._link_normals),
         origins=np.asarray(hand._origins), links=hand.links,
-        n_joints=hand.n_joints,
+        n_joints=hand.n_joints, device="cpu",
     )
     dense, _ = obj.mesh.sample_surface(4096, seed=5)
     return cfg, obj, hand, frame, Estimator(tobj, thand, cfg), dense
@@ -110,15 +110,6 @@ def test_tracker_steps_from_seeded_state(setup, variant):
     assert (tracker.state.hyp_poses is None) == (n_hyp == 1)
 
 
-def test_init_mode_is_not_ported(setup):
-    _, _, _, frame, est, _ = setup
-    with pytest.raises(NotImplementedError):
-        est.estimate(frame.depth, frame.pose_gt, frame.hand_base, frame.hand_q,
-                     mode="init")
-    with pytest.raises(NotImplementedError):   # an unseeded tracker must init
-        Tracker(est).step(frame.depth, frame.hand_base, frame.hand_q)
-
-
 def test_snap_and_hypotheses_match_reference(setup):
     _, obj, *_ = setup
     g = np.random.default_rng(0)
@@ -147,6 +138,7 @@ def test_port_never_imports_jax():
         "import icra20_hand_object_pose_tpu_torch as p\n"
         "from icra20_hand_object_pose_tpu_torch import convert, evaluation\n"
         "from icra20_hand_object_pose_tpu_torch import datasets, models, ops, utils\n"
+        "from icra20_hand_object_pose_tpu_torch.ops import icp, knn_cuda, pso\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('icra20_hand_object_pose_tpu.'))\n"
         "assert not bad, bad\n"

@@ -100,7 +100,7 @@ PATCH = 16
 
 @pytest.fixture(scope="module")
 def frame():
-    hand = make_t42_hand(points_per_link=64)
+    hand = make_t42_hand(points_per_link=64, device="cpu")
     hb = hand_base_for_grasp(T_GT)
     q = np.array([0.45, 0.45], np.float32)
     depth = render_frame_fast(BOX, T_GT, hand, hb, q, CAM, n_points=4096,

@@ -26,7 +26,8 @@ def frame():
     pose = default_object_pose()
     hb = hand_base_for_grasp(pose)
     depth = render_frame_fast(
-        meshio.make_test_object("box"), pose, make_t42_hand(points_per_link=64),
+        meshio.make_test_object("box"), pose,
+        make_t42_hand(points_per_link=64, device="cpu"),
         hb, np.array([0.45, 0.45], np.float32), CAM, n_points=4096,
         noise_sigma=0.001, rng=np.random.default_rng(0),
     )

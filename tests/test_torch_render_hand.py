@@ -51,7 +51,7 @@ def test_splat_depth_exact(radius):
 
 @pytest.fixture(scope="module")
 def hands():
-    return jax_t42(points_per_link=64), make_t42_hand(points_per_link=64)
+    return jax_t42(points_per_link=64), make_t42_hand(points_per_link=64, device="cpu")
 
 
 def test_fk_and_cloud(hands):
