@@ -2,26 +2,36 @@
 
     python3 chip_smoke.py                  # one CUDA device, from the repo root
     python3 chip_smoke.py --kernels-only   # build + kernel phases, then stop
+    python3 chip_smoke.py --sweep          # build + every launch plan, timed
+    scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
 
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: a CUDA device is required (no CPU fallback); prints the card's
      name and power limit as nvidia-smi reports them;
   2. build:  compiles every kernel source (csrc/*.cu: K1 and K2 in
-     nn_gather.cu, K3 in nn_gn.cu), one nvcc per source started together,
-     into one library; prints ptxas' register and spill report;
+     nn_gather.cu, K3 in nn_gn.cu, both on the search core nn_search.cuh),
+     one nvcc per source started together, into one library; prints
+     ptxas' register and spill report;
   3. kernels, each against its plain PyTorch version on the card, timed:
      - K1 at the tracked frame's shapes (in-scan, explorer, polish/support),
-       shared and per-particle queries, plus a ragged case: d2 within rtol
-       1e-5 / atol 1e-8, >= 99.9% equal indices, bitwise-equal matched
-       points and normals where the index agrees;
-     - K2 at the same shapes: >= 99.9% equal indices, d2 bitwise equal
-       where the index agrees;
+       shared and per-particle queries, plus a ragged case, then the tie
+       cases (every reference point duplicated across the ranges a block's
+       thread groups split the cloud into): the same indices, d2 bitwise
+       equal, matched points and normals bitwise equal;
+     - K2 at the same shapes: the same indices, d2 bitwise equal;
      - K3 at the tracked scan (512 x 512 x 256), the explorer pulls (32 x
-       512 x 256), the init scan (1024 x 512 x 512) and a ragged case: H,
-       g and wrr within rtol 1e-4 plus an atol of 1e-5 x the largest |H|
-       entry of that particle (the two sum in other orders), wsum and hits
-       within 1e-5 relative;
+       512 x 256), the init scan (1024 x 512 x 512) and a ragged case, then
+       a tie case and a 4096-point scene: H, g and wrr within rtol 1e-4
+       plus an atol of 1e-5 x the largest |H| entry of that particle (the
+       two sum in other orders), wsum and hits within 1e-5 relative, a
+       repeated call bitwise equal;
+     timing columns per shape: device ms per launch (20-50 calls captured
+     in one CUDA graph, timed with events: the card's time, host excluded),
+     the kernels one call launches (torch.profiler, by name), ms per call
+     incl. host issue (events around a loop of wrapper calls: the host's
+     time wherever it is the slower side), host us per wrapper call, the
+     plain version's ms, the bound, and the exact-form floor;
   4. main path, track (the repo's benchmark configuration: VGA at
      fx=fy=570, box object, T42 hand, 2048 scene / 1024 model / 2048 render
      points, 512 particles x 10 iterations), a splat-rendered frame with
@@ -66,9 +76,16 @@ SOURCE = {
 # the same subsets, the polish and fine-tier support on the full clouds
 # (1 + 8 top + 1 explorer + 8 slides = 18 candidates), and one ragged case
 NN_SHAPES = [(512, 512, 256), (32, 512, 256), (18, 2048, 1024), (3, 37, 73)]
+# tie cases, checked only: the polish shape and the ragged one with every
+# reference point duplicated across the split ranges (see `_ties`)
+TIE_SHAPES = [(18, 2048, 1024), (3, 37, 73)]
 # (P, Ns, Nm) of K3: the tracked scan, the explorer pulls, the init scan,
 # one ragged case
 GN_SHAPES = [(512, 512, 256), (32, 512, 256), (1024, 512, 512), (3, 90, 130)]
+# K3 checks beyond the main path (P, Ns, Nm, ties): the explorer pulls with
+# ties across its model ranges, and a scene larger than one launch covers at
+# once (each block walks 4 chunks)
+GN_CHECKS = [(32, 512, 256, True), (3, 4096, 256, False)]
 # published H100 SXM peaks: FP32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -80,6 +97,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
+    """CUDA events around `reps` calls of `fn`, per call: the device's time
+    when it is the slower side, the host's time to issue a call when the
+    host is."""
     import torch
 
     fn()
@@ -92,6 +112,99 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_names(fn, reps: int = 10) -> list[str]:
+    """The CUDA kernels that `reps` calls of `fn` launched, by name, from
+    torch.profiler (names only: it may drop events of short kernels, and
+    now and then records none, so an empty profile is taken again)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)})
+        if names:
+            return names
+    raise RuntimeError("the profiler recorded no kernel on the card")
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device ms per call: `reps` calls captured in one CUDA graph, each of
+    `replays` replays timed with events, the median replay over `reps`. The
+    host takes no part in a replay, so this is the card's time for the
+    call's kernels and the gaps between them."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def host_us(fn, reps: int) -> float:
+    """Host time per call to issue `fn` (no synchronisation inside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * elapsed / reps
+
+
+def timings(run, plain, reps: int) -> dict:
+    """Device ms per launch (CUDA graph), the kernels a call launches, ms per
+    call incl. host issue (events around a loop of calls), host us per call,
+    and the plain version's ms per call (events)."""
+    return dict(ms=graph_ms(run, reps), kernels_per_call=len(kernel_names(run)),
+                call_ms=time_ms(run, reps), host_us=host_us(run, reps),
+                plain_ms=time_ms(plain, max(3, reps // 5)))
+
+
+def floor_ms(pairs: float) -> float:
+    """Exact-form floor of the search: 11 issued instructions per (query,
+    ref) pair (3 sub, 3 mul, 2 add, a compare and 2 selects, no FMA) at
+    132 SMs x 128 lanes x 1.98 GHz = 33.5 T lane-instructions/s."""
+    return 1e3 * 11.0 * pairs / 33.5e12
+
+
+def report(tag: str, where: str, t: dict, b_ms: float, b_by: str, pairs: float) -> None:
+    print(f"{tag} {where}: device {t['ms']:.5f} ms/launch "
+          f"({t['kernels_per_call']} kernel(s)/call), call incl. host issue "
+          f"{t['call_ms']:.5f} ms, host {t['host_us']:.1f} us/call, plain "
+          f"{t['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), exact-form "
+          f"floor {floor_ms(pairs):.5f} ms", flush=True)
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -119,6 +232,17 @@ def gn_bound(P, Ns, Nm) -> tuple[float, str]:
     return bound(ops, 4.0 * (7 * Ns + 6 * P * Nm + 45 * P))
 
 
+def _plan_kw(plan) -> dict:
+    """The wrappers' `plan` argument, left out when None: the kernel phases
+    also time checkouts whose wrappers take no plan (scripts/kernel_ab.sh)."""
+    return {} if plan is None else {"plan": plan}
+
+
+def _plan_of(knn_cuda, name: str, *shape) -> str:
+    fn = getattr(knn_cuda, name, None)
+    return str(fn(*shape)) if fn else "(no plan)"
+
+
 def _cloud(gen, shape, dev, scale=0.3, centre=0.5):
     import torch
 
@@ -126,12 +250,59 @@ def _cloud(gen, shape, dev, scale=0.3, centre=0.5):
     return (torch.rand(shape, generator=gen, device=dev) - 0.5) * scale + c
 
 
+def _ties(r) -> None:
+    """Copies the first half of each reference cloud into the second half
+    (and, for odd Nm, point Nm//2 - 1 into the last slot), in place: every
+    query's minimum is then reached at j and at j + Nm//2 at least, across
+    the ranges that a block's thread groups split the cloud into, and the
+    lower index must win."""
+    h = r.shape[1] // 2
+    r[:, h:2 * h] = r[:, :h]
+    if r.shape[1] % 2:
+        r[:, -1] = r[:, h - 1]
+
+
+def nn_case(knn_cuda, gen, dev, gather: bool, P, Pq, Ns, Nm, ties=False, plan=None):
+    """One K1 (gather) or K2 case against its plain version: indices equal
+    everywhere and d2 bitwise equal (K1: the matched points and normals
+    too). Returns (run, plain, max |d2 err|)."""
+    import torch
+
+    tag = "K1" if gather else "K2"
+    q = _cloud(gen, (Pq, Ns, 3), dev)
+    q[:, ::17] = 1e6                      # scene padding rows
+    r = _cloud(gen, (P, Nm, 3), dev)
+    if ties:
+        _ties(r)
+    where = f"P={P} Pq={Pq} Ns={Ns} Nm={Nm}{' ties' if ties else ''} {plan or ''}"
+    if gather:
+        n = torch.nn.functional.normalize(
+            torch.randn((P, Nm, 3), generator=gen, device=dev), dim=-1)
+        run = lambda: knn_cuda.nn_gather_batched(q, r, n, **_plan_kw(plan))
+        plain = lambda: knn_cuda.nn_gather_plain(q, r, n)
+        m, nm, d2, idx = run()
+        mp, nmp, d2p, idxp = plain()
+    else:
+        run = lambda: knn_cuda.nn_batched(q, r, **_plan_kw(plan))
+        plain = lambda: knn_cuda.nn_plain(q, r)
+        idx, d2 = run()
+        idxp, d2p = plain()
+    torch.cuda.synchronize()
+    agree = (idx == idxp).float().mean().item()
+    err = (d2 - d2p).abs().max().item()
+    check(agree == 1.0, f"{tag} index agreement {agree} at {where}")
+    check(bool(torch.equal(d2, d2p)), f"{tag} d2 not bitwise equal at {where}")
+    if gather:
+        check(bool(torch.equal(m, mp) and torch.equal(nm, nmp)),
+              f"K1 matched point/normal differ at {where}")
+    print(f"{tag} {where}: idx agree {agree:.6f}, max|d2 err| {err:.3e}", flush=True)
+    return run, plain, err
+
+
 def nn_phase(knn_cuda, dev, gather: bool) -> dict:
     """K1 (gather) or K2 against its plain version at every main-path shape,
-    shared and per-particle queries; returns the in-scan numbers. Both: >=
-    99.9% equal indices. K1: d2 within rtol 1e-5 / atol 1e-8, bitwise-equal
-    matched points and normals where the index agrees. K2: d2 bitwise equal
-    where the index agrees."""
+    shared and per-particle queries, timed; then the tie cases, checked
+    only. Returns the in-scan numbers."""
     import torch
 
     tag = "K1" if gather else "K2"
@@ -139,106 +310,129 @@ def nn_phase(knn_cuda, dev, gather: bool) -> dict:
     max_err, res = 0.0, {}
     for P, Ns, Nm in NN_SHAPES:
         for Pq in (1, P):
-            q = _cloud(gen, (Pq, Ns, 3), dev)
-            q[:, ::17] = 1e6                      # scene padding rows
-            r = _cloud(gen, (P, Nm, 3), dev)
-            where = f"P={P} Pq={Pq} Ns={Ns} Nm={Nm}"
-            if gather:
-                n = torch.nn.functional.normalize(
-                    torch.randn((P, Nm, 3), generator=gen, device=dev), dim=-1)
-                run = lambda: knn_cuda.nn_gather_batched(q, r, n)
-                plain = lambda: knn_cuda.nn_gather_plain(q, r, n)
-                m, nm, d2, idx = run()
-                mp, nmp, d2p, idxp = plain()
-            else:
-                run = lambda: knn_cuda.nn_batched(q, r)
-                plain = lambda: knn_cuda.nn_plain(q, r)
-                idx, d2 = run()
-                idxp, d2p = plain()
-            torch.cuda.synchronize()
-            same = idx == idxp
-            agree = same.float().mean().item()
-            check(agree >= 0.999, f"{tag} index agreement {agree} at {where}")
-            if gather:
-                check(bool(torch.allclose(d2, d2p, rtol=1e-5, atol=1e-8)),
-                      f"K1 d2 disagrees at {where}")
-                check(bool(torch.equal(m[same], mp[same])
-                           and torch.equal(nm[same], nmp[same])),
-                      f"K1 matched point/normal differ at {where}")
-            else:
-                check(bool(torch.equal(d2[same], d2p[same])),
-                      f"K2 d2 not bitwise equal at {where}")
-            err = (d2 - d2p).abs().max().item()
+            run, plain, err = nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm)
             max_err = max(max_err, err)
-            reps = 50 if P * Ns * Nm < 1e8 else 20
-            k_ms = time_ms(run, reps)
-            p_ms = time_ms(plain, max(3, reps // 5))
+            t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
             b_ms, b_by = nn_bound(P, Pq, Ns, Nm, gather)
-            res[(P, Pq, Ns, Nm)] = (k_ms, p_ms, b_ms, b_by)
-            print(f"{tag} {where}: idx agree {agree:.6f}, max|d2 err| {err:.3e}, "
-                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-                  f"({b_by})", flush=True)
-    k_ms, p_ms, b_ms, b_by = res[(512, 1, 512, 256)]
-    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by)
+            report(tag, f"P={P} Pq={Pq} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'nn_plan', P, Ns, Nm)}",
+                   t, b_ms, b_by, P * Ns * Nm)
+            res[(P, Pq, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    for P, Ns, Nm in TIE_SHAPES:
+        max_err = max(max_err, nn_case(knn_cuda, gen, dev, gather, P, 1, Ns, Nm,
+                                       ties=True)[2])
+    return dict(max_abs_err=max_err, **res[(512, 1, 512, 256)])
 
 
-def k3_phase(knn_cuda, dev) -> dict:
-    """K3 vs plain at the tracked scan, explorer, init scan and a ragged
-    shape; returns the tracked-scan numbers."""
+def gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties=False, plan=None):
+    """One K3 case against its plain version: H, g and wrr within rtol 1e-4
+    plus 1e-5 x the particle's largest |H| entry, wsum and hits within 1e-5
+    relative, finite, and a repeated call bitwise equal. Returns (run,
+    plain, max |err| over H, g, wrr)."""
     import math
 
     import torch
 
-    gen = torch.Generator(device=dev).manual_seed(2)
     gates = dict(maxd2=0.02 ** 2, min_cos=math.cos(math.radians(60.0)),
                  tau2=0.01 ** 2)
+    # anchored clouds of object size; scene padding rows far out, weight 0
+    scene = _cloud(gen, (Ns, 3), dev, scale=0.1, centre=0.0)
+    snrm = torch.nn.functional.normalize(
+        torch.randn((Ns, 3), generator=gen, device=dev), dim=-1)
+    snrm[::11] = 0.0                                   # missing normals
+    sw = (torch.rand((Ns,), generator=gen, device=dev) > 0.1).float()
+    scene[::13] = 1e6
+    sw[::13] = 0.0
+    ref = _cloud(gen, (P, Nm, 3), dev, scale=0.1, centre=0.0)
+    if ties:
+        _ties(ref)
+    rnrm = torch.nn.functional.normalize(
+        torch.randn((P, Nm, 3), generator=gen, device=dev), dim=-1)
+    where = f"P={P} Ns={Ns} Nm={Nm}{' ties' if ties else ''} {plan or ''}"
+    run = lambda: knn_cuda.nn_gn_batched(scene, snrm, sw, ref, rnrm, **gates,
+                                         **_plan_kw(plan))
+    plain = lambda: knn_cuda.nn_gn_plain(scene, snrm, sw, ref, rnrm, **gates)
+    out, ref_out, again = run(), plain(), run()
+    torch.cuda.synchronize()
+    H, g, wsum, hits, wrr = out
+    Hp, gp, wsump, hitsp, wrrp = ref_out
+    check(all(bool(torch.isfinite(t).all()) for t in out),
+          f"K3 non-finite output at {where}")
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"K3 repeated call not bitwise equal at {where}")
+    scale = Hp.abs().amax(dim=(1, 2))                  # [P]
+    errs = []
+    for name, a, b in (("H", H, Hp), ("g", g, gp), ("wrr", wrr, wrrp)):
+        sc = scale.reshape((P,) + (1,) * (a.dim() - 1))
+        ok = (a - b).abs() <= 1e-4 * b.abs() + 1e-5 * sc
+        check(bool(ok.all()), f"K3 {name} disagrees at {where}: "
+              f"max err {(a - b).abs().max().item():.3e}")
+        errs.append((a - b).abs().max().item())
+    for name, a, b in (("wsum", wsum, wsump), ("hits", hits, hitsp)):
+        check(bool(((a - b).abs() <= 1e-5 * b.abs()).all()),
+              f"K3 {name} disagrees at {where}")
+    print(f"K3 {where}: max|err| H {errs[0]:.3e} g {errs[1]:.3e} "
+          f"wrr {errs[2]:.3e}, mean inlier mass {wsum.mean().item():.2f}, "
+          f"repeat bitwise equal", flush=True)
+    return run, plain, max(errs)
+
+
+def k3_phase(knn_cuda, dev) -> dict:
+    """K3 vs plain at the tracked scan, explorer, init scan and a ragged
+    shape, timed; then a tie case and a scene larger than one launch covers
+    at once, checked only. Returns the tracked-scan numbers."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
     max_err, res = 0.0, {}
     for P, Ns, Nm in GN_SHAPES:
-        # anchored clouds of object size; scene padding rows far out, weight 0
-        scene = _cloud(gen, (Ns, 3), dev, scale=0.1, centre=0.0)
-        snrm = torch.nn.functional.normalize(
-            torch.randn((Ns, 3), generator=gen, device=dev), dim=-1)
-        snrm[::11] = 0.0                                   # missing normals
-        sw = (torch.rand((Ns,), generator=gen, device=dev) > 0.1).float()
-        scene[::13] = 1e6
-        sw[::13] = 0.0
-        ref = _cloud(gen, (P, Nm, 3), dev, scale=0.1, centre=0.0)
-        rnrm = torch.nn.functional.normalize(
-            torch.randn((P, Nm, 3), generator=gen, device=dev), dim=-1)
-        out = knn_cuda.nn_gn_batched(scene, snrm, sw, ref, rnrm, **gates)
-        plain = knn_cuda.nn_gn_plain(scene, snrm, sw, ref, rnrm, **gates)
-        torch.cuda.synchronize()
-        H, g, wsum, hits, wrr = out
-        Hp, gp, wsump, hitsp, wrrp = plain
-        check(all(bool(torch.isfinite(t).all()) for t in out),
-              f"K3 non-finite output at {P, Ns, Nm}")
-        scale = Hp.abs().amax(dim=(1, 2))                  # [P]
-        errs = []
-        for name, a, b in (("H", H, Hp), ("g", g, gp), ("wrr", wrr, wrrp)):
-            sc = scale.reshape((P,) + (1,) * (a.dim() - 1))
-            ok = (a - b).abs() <= 1e-4 * b.abs() + 1e-5 * sc
-            check(bool(ok.all()), f"K3 {name} disagrees at {P, Ns, Nm}: "
-                  f"max err {(a - b).abs().max().item():.3e}")
-            errs.append((a - b).abs().max().item())
-        for name, a, b in (("wsum", wsum, wsump), ("hits", hits, hitsp)):
-            check(bool(((a - b).abs() <= 1e-5 * b.abs()).all()),
-                  f"K3 {name} disagrees at {P, Ns, Nm}")
-        max_err = max(max_err, *errs)
-        reps = 50 if P * Ns * Nm < 1e8 else 20
-        k_ms = time_ms(lambda: knn_cuda.nn_gn_batched(scene, snrm, sw, ref, rnrm,
-                                                      **gates), reps)
-        p_ms = time_ms(lambda: knn_cuda.nn_gn_plain(scene, snrm, sw, ref, rnrm,
-                                                    **gates), max(3, reps // 5))
+        run, plain, err = gn_case(knn_cuda, gen, dev, P, Ns, Nm)
+        max_err = max(max_err, err)
+        t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
         b_ms, b_by = gn_bound(P, Ns, Nm)
-        res[(P, Ns, Nm)] = (k_ms, p_ms, b_ms, b_by)
-        print(f"K3 P={P} Ns={Ns} Nm={Nm}: max|err| H {errs[0]:.3e} g {errs[1]:.3e} "
-              f"wrr {errs[2]:.3e}, mean inlier mass {wsum.mean().item():.2f}, "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by})", flush=True)
-    k_ms, p_ms, b_ms, b_by = res[(512, 512, 256)]
-    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by)
+        report("K3", f"P={P} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'gn_plan', P, Ns, Nm)}", t,
+               b_ms, b_by, P * Ns * Nm)
+        res[(P, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    for P, Ns, Nm, ties in GN_CHECKS:
+        max_err = max(max_err, gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties)[2])
+    return dict(max_abs_err=max_err, **res[(512, 512, 256)])
+
+
+def sweep_phase(knn_cuda, dev) -> None:
+    """Device ms per launch (a CUDA graph of 20 calls) of the launch plans
+    within the kernels' limits, at each main-path shape
+    (shared queries), each checked against the plain version first; the
+    plan that `nn_plan` / `gn_plan` picks is starred."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    P_, W = knn_cuda.Plan, knn_cuda.WIDTH
+
+    def timed(tag, run, plan, chosen):
+        print(f"sweep {tag} {tuple(plan)}: {graph_ms(run, 20):.5f} ms"
+              f"{' *' if plan == chosen else ''}", flush=True)
+
+    for gather in (True, False):
+        for P, Ns, Nm in NN_SHAPES[:3]:
+            chosen = knn_cuda.nn_plan(P, Ns, Nm)
+            for q in (1, 2, 4):
+                for groups in (1, 2, 4):
+                    for width in (64, W):
+                        plan = P_(q, groups, 1, width)
+                        run, _, _ = nn_case(knn_cuda, gen, dev, gather, P, 1, Ns, Nm,
+                                            ties=True, plan=plan)
+                        timed(f"{'K1' if gather else 'K2'} P={P} Ns={Ns} Nm={Nm}", run,
+                              plan, chosen)
+    for P, Ns, Nm in GN_SHAPES[:3]:
+        chosen = knn_cuda.gn_plan(P, Ns, Nm)
+        for q in (1, 2, 4):
+            for groups in (1, 2, 4):
+                for ss in (1, 2, 4, 8):
+                    if ss * q * W > Ns:
+                        continue
+                    plan = P_(q, groups, ss)
+                    run, _, _ = gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties=True,
+                                        plan=plan)
+                    timed(f"K3 P={P} Ns={Ns} Nm={Nm}", run, plan, chosen)
 
 
 class Scene:
@@ -441,6 +635,10 @@ def main(argv: list[str]) -> int:
                 "Compiling entry", "registers", "spill")):
             print("  ptxas:", line.strip(), flush=True)
 
+    if "--sweep" in argv:
+        sweep_phase(knn_cuda, dev)
+        print(smi, flush=True)
+        return 0
     stats = {"K1": nn_phase(knn_cuda, dev, gather=True),
              "K2": nn_phase(knn_cuda, dev, gather=False),
              "K3": k3_phase(knn_cuda, dev)}

@@ -8,43 +8,39 @@
 // FP32 squared distance and return that distance and the first minimal
 // index; K1 also returns the matched point and normal at that index.
 //
-// What bounds them on Hopper: FP32 work on the CUDA cores. Each (query, ref)
-// pair costs 3 subtractions, 3 multiplies, 2 adds and a compare (about 9
-// operations), while a point is about 16 bytes (12 of coordinates, plus its
-// share of the gathered normal) read once per block. At the in-scan shape
-// (P=512, Ns=512, Nm=256) that is 67M pairs against a few MB of input, far
-// above the card's bytes-per-operation line.
+// What bounds them on Hopper: issued instructions on the CUDA cores, about
+// 10 per (query, ref) pair for the exact, uncontracted arithmetic, and the
+// latency of too few warps where the grid is small (see nn_search.cuh),
+// against a few MB of input.
 //
-// Design:
-//   - one block per (particle, tile of kQueryTile queries); one thread owns
-//     one query and keeps its running (min d2, argmin) in registers;
-//   - the block walks the reference cloud in tiles of kRefTile points that
-//     it stages in shared memory, so the [P, Ns, Nm] distance matrix never
-//     exists in device memory;
-//   - distances are dx*dx + dy*dy + dz*dz with explicitly rounded multiplies
-//     and adds (no FMA contraction), the same operations as the plain
-//     PyTorch version, so both give bitwise-equal d2;
-//   - indices are scanned in increasing order with a strict `<`, so the
-//     first minimal index wins, as in `torch.argmin` and `jnp.argmin`;
-//   - the ragged last tile is bounded by Nm, no padding sentinel;
-//   - K1 only: after the search, the matched point and normal are read from
-//     global memory at the winning index (no one-hot product). K2 is the
-//     same kernel with the gather compiled out (template flag).
+// Design: the search core of nn_search.cuh. Grid (tiles, P): each block
+// takes Q * W queries of particle p; its S groups of W threads split the
+// reference cloud and merge in group order. The [P, Ns, Nm] distance matrix
+// never exists in device memory. K1 only: group 0 reads the matched point
+// and normal at the winning index from the staged tiles, or the normal from
+// global memory beyond kStagedNormals points (the TPU used a one-hot
+// product). K2 is the same kernel with the gather compiled out, so the two
+// cannot drift apart in arithmetic or tie order.
 //
 // The query is either shared by all particles (Pq == 1) or per particle
 // (Pq == P). Plain C interface, loaded with ctypes; the launch goes on the
-// caller's stream and the function returns cudaGetLastError().
+// caller's stream and the function returns its cudaError_t.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "nn_search.cuh"
 
 namespace {
 
-constexpr int kQueryTile = 128;  // threads per block, one query each
-constexpr int kRefTile = 256;    // reference points staged per shared tile
+using namespace nn_search;
 
-template <bool kGather>
-__global__ void __launch_bounds__(kQueryTile)
+// K1 stages the normals beside the points (its gather then reads both from
+// shared memory) up to this many reference points: the explorer and in-scan
+// shapes gain, where few blocks leave the gather's latency exposed; the
+// polish shape (Nm = 1024 over 576 blocks) loses more to staging twice the
+// bytes than it saves.
+constexpr int kStagedNormals = 256;
+
+template <int Q, int W, bool kGather>
+__global__ void __launch_bounds__(kMaxBlock)
 nn_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
           const float* __restrict__ ref_pts,    // [P, Nm, 3]
           const float* __restrict__ ref_nrm,    // [P, Nm, 3] (K1 only)
@@ -52,80 +48,106 @@ nn_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
           float* __restrict__ mnormal,          // [P, Ns, 3] (K1 only)
           float* __restrict__ d2_out,           // [P, Ns]
           int* __restrict__ idx_out,            // [P, Ns]
-          int shared_query, int Ns, int Nm) {
-  __shared__ float tile[3 * kRefTile];
+          int shared_query, int Ns, int Nm, int S, int stage_normals) {
+  extern __shared__ float4 smem4[];
+  const Staging st = staging(reinterpret_cast<float*>(smem4), Nm, S, stage_normals != 0);
 
-  const int p = blockIdx.x;
-  const int s = blockIdx.y * kQueryTile + threadIdx.x;
-  const bool active = s < Ns;
-
-  const float* q = query + ((shared_query ? 0 : (size_t)p * Ns) + (active ? s : 0)) * 3;
-  const float qx = q[0], qy = q[1], qz = q[2];
+  const int p = blockIdx.y;
+  const Lane ln = this_lane<W>(S);
+  const int s0 = blockIdx.x * Q * W + ln.l;
   const float* ref = ref_pts + (size_t)p * Nm * 3;
+  const float* nrm = kGather ? ref_nrm + (size_t)p * Nm * 3 : nullptr;
 
-  float best = INFINITY;
-  int best_i = 0;
-  for (int j0 = 0; j0 < Nm; j0 += kRefTile) {
-    const int n = min(kRefTile, Nm - j0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int k = threadIdx.x; k < 3 * n; k += kQueryTile) {
-      tile[k] = ref[(size_t)j0 * 3 + k];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float dx = __fsub_rn(tile[3 * j + 0], qx);
-      const float dy = __fsub_rn(tile[3 * j + 1], qy);
-      const float dz = __fsub_rn(tile[3 * j + 2], qz);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      if (d < best) {
-        best = d;
-        best_i = j0 + j;
-      }
-    }
-  }
-  if (!active) return;
+  Queries<Q> q;
+  Best<Q> b;
+  load_queries<Q>(query + (shared_query ? 0 : (size_t)p * Ns * 3), s0, Ns, ln, q);
+  sweep<Q>(ref, st.nrm != nullptr ? nrm : nullptr, Nm, ln, st, q, b);
+  merge_groups<Q>(b, st.merge, ln);
+  if (ln.g != 0) return;
 
-  const size_t out = (size_t)p * Ns + s;
-  d2_out[out] = best;
-  idx_out[out] = best_i;
-  if constexpr (kGather) {
-    const size_t src = ((size_t)p * Nm + best_i) * 3;
-    matched[out * 3 + 0] = ref_pts[src + 0];
-    matched[out * 3 + 1] = ref_pts[src + 1];
-    matched[out * 3 + 2] = ref_pts[src + 2];
-    mnormal[out * 3 + 0] = ref_nrm[src + 0];
-    mnormal[out * 3 + 1] = ref_nrm[src + 1];
-    mnormal[out * 3 + 2] = ref_nrm[src + 2];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int s = s0 + k * W;
+    if (s >= Ns) continue;
+    const size_t out = (size_t)p * Ns + s;
+    d2_out[out] = b.d2[k];
+    idx_out[out] = b.idx[k];
+    if constexpr (kGather) {
+      float m[3], n[3];
+      fetch_match(st, ref, nrm, b.idx[k], m, n);
+      matched[out * 3 + 0] = m[0];
+      matched[out * 3 + 1] = m[1];
+      matched[out * 3 + 2] = m[2];
+      mnormal[out * 3 + 0] = n[0];
+      mnormal[out * 3 + 1] = n[1];
+      mnormal[out * 3 + 2] = n[2];
+    }
   }
 }
 
-bool bad_shape(int P, int Pq, int Ns, int Nm) {
-  return P <= 0 || Ns <= 0 || Nm <= 0 || (Pq != 1 && Pq != P);
+template <int Q, int W, bool kGather>
+cudaError_t launch_q(int P, int Ns, int Nm, int S, cudaStream_t st,
+                     const float* query, const float* ref_pts, const float* ref_nrm,
+                     float* matched, float* mnormal, float* d2, int* idx, int shared) {
+  const dim3 grid((Ns + Q * W - 1) / (Q * W), P);
+  const bool normals = kGather && Nm <= kStagedNormals;
+  nn_kernel<Q, W, kGather><<<grid, W * S, smem_bytes(Nm, Q, W, S, normals), st>>>(
+      query, ref_pts, ref_nrm, matched, mnormal, d2, idx, shared, Ns, Nm, S, normals ? 1 : 0);
+  return cudaGetLastError();
+}
+
+template <int W, bool kGather>
+cudaError_t launch_w(int q, int P, int Ns, int Nm, int S, cudaStream_t st, const float* query,
+                     const float* ref_pts, const float* ref_nrm, float* matched,
+                     float* mnormal, float* d2, int* idx, int shared) {
+  switch (q) {
+    case 1:
+      return launch_q<1, W, kGather>(P, Ns, Nm, S, st, query, ref_pts, ref_nrm, matched,
+                                     mnormal, d2, idx, shared);
+    case 2:
+      return launch_q<2, W, kGather>(P, Ns, Nm, S, st, query, ref_pts, ref_nrm, matched,
+                                     mnormal, d2, idx, shared);
+    default:
+      return launch_q<4, W, kGather>(P, Ns, Nm, S, st, query, ref_pts, ref_nrm, matched,
+                                     mnormal, d2, idx, shared);
+  }
+}
+
+template <bool kGather>
+int launch_nn(const float* query, const float* ref_pts, const float* ref_nrm,
+              float* matched, float* mnormal, float* d2, int* idx, int P, int Pq,
+              int Ns, int Nm, int q, int width, int S, void* stream) {
+  if (P <= 0 || P > 65535 || Ns <= 0 || Nm <= 0 || (Pq != 1 && Pq != P) || bad_plan(q, S) ||
+      (width != 64 && width != kWidth)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int shared = Pq == 1 ? 1 : 0;
+  return (int)(width == 64 ? launch_w<64, kGather>(q, P, Ns, Nm, S, st, query, ref_pts,
+                                                   ref_nrm, matched, mnormal, d2, idx, shared)
+                           : launch_w<kWidth, kGather>(q, P, Ns, Nm, S, st, query, ref_pts,
+                                                       ref_nrm, matched, mnormal, d2, idx,
+                                                       shared));
 }
 
 }  // namespace
 
-// K1: search + gather.
+// K1: search + gather, with `q` queries per thread, groups of `width`
+// threads (64 or 128) and the reference cloud split over `S` groups of a
+// block.
 extern "C" int nn_gather_launch(const float* query, const float* ref_pts,
                                 const float* ref_nrm, float* matched,
                                 float* mnormal, float* d2, int* idx, int P,
-                                int Pq, int Ns, int Nm, void* stream) {
-  if (bad_shape(P, Pq, Ns, Nm)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(P, (Ns + kQueryTile - 1) / kQueryTile);
-  nn_kernel<true><<<grid, kQueryTile, 0, (cudaStream_t)stream>>>(
-      query, ref_pts, ref_nrm, matched, mnormal, d2, idx, Pq == 1 ? 1 : 0, Ns,
-      Nm);
-  return (int)cudaGetLastError();
+                                int Pq, int Ns, int Nm, int q, int width, int S,
+                                void* stream) {
+  return launch_nn<true>(query, ref_pts, ref_nrm, matched, mnormal, d2, idx, P, Pq, Ns,
+                         Nm, q, width, S, stream);
 }
 
 // K2: search only.
 extern "C" int nn_launch(const float* query, const float* ref_pts, float* d2,
-                         int* idx, int P, int Pq, int Ns, int Nm, void* stream) {
-  if (bad_shape(P, Pq, Ns, Nm)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(P, (Ns + kQueryTile - 1) / kQueryTile);
-  nn_kernel<false><<<grid, kQueryTile, 0, (cudaStream_t)stream>>>(
-      query, ref_pts, nullptr, nullptr, nullptr, d2, idx, Pq == 1 ? 1 : 0, Ns,
-      Nm);
-  return (int)cudaGetLastError();
+                         int* idx, int P, int Pq, int Ns, int Nm, int q, int width, int S,
+                         void* stream) {
+  return launch_nn<false>(query, ref_pts, nullptr, nullptr, nullptr, d2, idx, P, Pq, Ns,
+                          Nm, q, width, S, stream);
 }

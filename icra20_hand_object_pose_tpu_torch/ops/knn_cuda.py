@@ -36,16 +36,49 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from . import icp
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+
+# Launch plans (csrc/nn_search.cuh): a block is `groups` groups of `width`
+# threads (at most MAX_GROUPS), each thread owns `q` queries. Chosen from
+# device-time sweeps of the main-path shapes (`chip_smoke.py --sweep`) on an
+# H100 with SMS streaming multiprocessors:
+#   - where one block per tile of 4 x WIDTH queries gives 2 blocks per SM,
+#     that is the plan (K1/K2 in-scan, K3 tracked and init scans);
+#   - else K1/K2 take tiles of SMALL_WIDTH queries, split the reference
+#     cloud over MAX_GROUPS groups (fewer while a group would get under
+#     MIN_RANGE points) and give each thread 2 queries where a group's range
+#     is under MIN_PAIRS points, 1 where it is longer;
+#   - and K3 takes 1 scene point per thread, splits the model cloud over
+#     GN_GROUPS groups where each keeps GN_MIN_RANGE points, and the scene
+#     over up to MAX_SCENE_SPLIT blocks per particle.
+WIDTH = 128
+SMALL_WIDTH = 64
+MAX_GROUPS = 4
+SMS = 132
+MIN_RANGE = 32
+MIN_PAIRS = 128
+GN_GROUPS = 2
+GN_MIN_RANGE = 128
+MAX_SCENE_SPLIT = 8
+
+
+class Plan(NamedTuple):
+    """How a kernel covers (P, Ns, Nm); see `nn_plan` and `gn_plan`."""
+
+    q: int            # queries (scene points) per thread: 1, 2 or 4
+    groups: int       # groups of a block, each sweeping 1/groups of the reference
+    scene_split: int  # K3: blocks per particle that split the scene (K1/K2: 1)
+    width: int = WIDTH  # threads per group (K1/K2: 64 or 128; K3: 128)
 
 
 def nn_plain(query: torch.Tensor, ref: torch.Tensor
@@ -103,6 +136,35 @@ def nn_gn_plain(
     return H, g, torch.sum(w, dim=-1), hits, torch.sum(w * r * r, dim=-1)
 
 
+def _tiles(Ns: int, q: int, width: int = WIDTH) -> int:
+    """Query tiles of q * width queries that cover Ns (the kernels' grid)."""
+    return -(-Ns // (q * width))
+
+
+@functools.lru_cache(maxsize=256)
+def nn_plan(P: int, Ns: int, Nm: int) -> Plan:
+    """K1/K2's launch plan; the kernel runs one block per tile of
+    q * width queries of a particle."""
+    if P * _tiles(Ns, 4) >= 2 * SMS:
+        return Plan(4, 1, 1)
+    groups = MAX_GROUPS
+    while groups > 1 and -(-Nm // groups) < MIN_RANGE:
+        groups //= 2
+    q = 2 if -(-Nm // groups) < MIN_PAIRS else 1
+    return Plan(q, groups, 1, SMALL_WIDTH)
+
+
+@functools.lru_cache(maxsize=256)
+def gn_plan(P: int, Ns: int, Nm: int) -> Plan:
+    """K3's launch plan; the kernel runs `scene_split` blocks per particle,
+    each walking the scene in chunks of scene_split * q * WIDTH points."""
+    if P * _tiles(Ns, 4) >= 2 * SMS:
+        return Plan(4, 1, 1)
+    groups = GN_GROUPS if Nm >= GN_GROUPS * GN_MIN_RANGE else 1
+    split = max(1, min(MAX_SCENE_SPLIT, _tiles(Ns, 1), -(-2 * SMS // P)))
+    return Plan(1, groups, split)
+
+
 def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
@@ -113,20 +175,30 @@ def _nvcc() -> str:
     return found
 
 
+def library_name(csrc: Path = CSRC) -> str:
+    """The library's file name: a hash of the nvcc flags and of every
+    `*.cu` and `*.cuh` in `csrc`, so an edit to a header rebuilds too."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return f"knn_kernels_{h.hexdigest()[:12]}.so"
+
+
 def _compile_and_link(lib_path: Path) -> str:
-    """One nvcc per source, all started together, then one link into
-    `lib_path`. Returns the compilers' output (with -Xptxas -v's register
-    and spill report)."""
+    """One nvcc per `*.cu` source (the headers are included, not compiled
+    alone), all started together, then one link into `lib_path`. Returns the
+    compilers' output (with -Xptxas -v's register and spill report)."""
     nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
     tmp_dir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        objs = [tmp_dir / (src.stem + ".o") for src in SOURCES]
+        objs = [tmp_dir / (src.stem + ".o") for src in sources]
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(SOURCES, objs)]
+            for src, obj in zip(sources, objs)]
         logs, failed = [], []
-        for src, proc in zip(SOURCES, procs):
+        for src, proc in zip(sources, procs):
             out, _ = proc.communicate()
             logs.append(f"== {src.name}\n{out}")
             if proc.returncode != 0:
@@ -149,37 +221,41 @@ def _compile_and_link(lib_path: Path) -> str:
 
 @functools.cache
 def build() -> tuple[ctypes.CDLL, str]:
-    """Compile every `csrc/*.cu` into one library (once per content of all
-    sources) and load it. Returns (library, compiler log). Raises if nvcc
-    fails."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    """Compile `csrc/` into one library (once per content of its sources
+    and headers) and load it. Returns (library, compiler log). Raises if
+    nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"knn_kernels_{h.hexdigest()[:12]}.so"
+    lib_path = BUILD_DIR / library_name()
     log = "" if lib_path.exists() else _compile_and_link(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nn_gather_launch.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-    lib.nn_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.nn_gn_launch.argtypes = [ptr] * 11 + [i32] * 3 + [f32] * 3 + [ptr]
-    lib.nn_gn_query_tile.argtypes = []
-    for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch,
-               lib.nn_gn_query_tile):
+    lib.nn_gather_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.nn_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.nn_gn_launch.argtypes = [ptr] * 12 + [i32] * 6 + [f32] * 3 + [ptr]
+    for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch):
         fn.restype = i32
     return lib, log
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+@functools.cache
+def _entry_points() -> tuple:
+    """The C entry points (K1, K2, K3), bound once."""
+    lib, _ = build()
+    return lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch
+
+
+def _check(device: torch.device, *specs) -> None:
+    """One pass over (name, tensor, shape, dtype) specs: raises on the first
+    tensor that is not on `device`, of `dtype`, of `shape` and contiguous."""
+    for name, t, shape, dtype in specs:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def _route(kernel: str, device: torch.device, **sizes: int) -> bool:
@@ -193,9 +269,33 @@ def _route(kernel: str, device: torch.device, **sizes: int) -> bool:
     return True
 
 
-def _raise_on(err: int, kernel: str) -> None:
+def _launch(kernel: str, device: torch.device, fn, *args) -> None:
+    """Calls C entry point `fn` with `args` and the device's current stream,
+    entering the device only when it is not the current one; raises if the
+    launch failed."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+
+
+_ARRIVED: dict[torch.device, torch.Tensor] = {}
+
+
+def _arrival_counts(device: torch.device, P: int) -> torch.Tensor:
+    """K3's per-particle arrival counters on `device`: zero between launches
+    (the kernel resets what it counts), made once and grown when P does.
+    Shared by every K3 launch on the device, so those launches must not
+    overlap: the port issues them on one stream."""
+    counts = _ARRIVED.get(device)
+    if counts is None or counts.numel() < P:
+        counts = torch.zeros((max(P, 1024),), dtype=torch.int32, device=device)
+        _ARRIVED[device] = counts
+    return counts
 
 
 def _batched_shapes(query: torch.Tensor, ref: torch.Tensor):
@@ -212,33 +312,33 @@ def nn_gather_batched(
     query: torch.Tensor,        # [1|P, Ns, 3] float32
     ref_pts: torch.Tensor,      # [P, Nm, 3] float32
     ref_normals: torch.Tensor,  # [P, Nm, 3] float32
+    *,
+    plan: Plan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1, fused NN + correspondence gather: returns
     (matched [P,Ns,3], mnormal [P,Ns,3], d2 [P,Ns], idx [P,Ns] int32).
 
     A query with leading dim 1 is shared by every particle (the ICP case:
     one scene, P posed models). CPU tensors take `nn_gather_plain`; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel with `plan` (default `nn_plan` of the
+    shapes)."""
     Pq, Ns, P, Nm = _batched_shapes(query, ref_pts)
     device = ref_pts.device
     if not _route("K1", device, P=P, Ns=Ns, Nm=Nm):
         return nn_gather_plain(query, ref_pts, ref_normals)
-    _check("query", query, (Pq, Ns, 3), torch.float32, device)
-    _check("ref_pts", ref_pts, (P, Nm, 3), torch.float32, device)
-    _check("ref_normals", ref_normals, (P, Nm, 3), torch.float32, device)
-    lib, _ = build()
-    matched = torch.empty((P, Ns, 3), dtype=torch.float32, device=device)
-    mnormal = torch.empty((P, Ns, 3), dtype=torch.float32, device=device)
-    d2 = torch.empty((P, Ns), dtype=torch.float32, device=device)
+    f32 = torch.float32
+    _check(device, ("query", query, (Pq, Ns, 3), f32),
+           ("ref_pts", ref_pts, (P, Nm, 3), f32),
+           ("ref_normals", ref_normals, (P, Nm, 3), f32))
+    plan = plan or nn_plan(P, Ns, Nm)
+    matched = torch.empty((P, Ns, 3), dtype=f32, device=device)
+    mnormal = torch.empty((P, Ns, 3), dtype=f32, device=device)
+    d2 = torch.empty((P, Ns), dtype=f32, device=device)
     idx = torch.empty((P, Ns), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nn_gather_launch(
+    _launch("nn_gather", device, _entry_points()[0],
             query.data_ptr(), ref_pts.data_ptr(), ref_normals.data_ptr(),
             matched.data_ptr(), mnormal.data_ptr(), d2.data_ptr(),
-            idx.data_ptr(), P, Pq, Ns, Nm, stream,
-        )
-    _raise_on(err, "nn_gather")
+            idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
     nn_gather_batched.launches += 1
     return matched, mnormal, d2, idx
 
@@ -249,24 +349,23 @@ nn_gather_batched.launches = 0
 def nn_batched(
     query: torch.Tensor,  # [1|P, Ns, 3] float32
     ref: torch.Tensor,    # [P, Nm, 3] float32
+    *,
+    plan: Plan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K2, NN only: returns (idx [P,Ns] int32, d2 [P,Ns]). A query with
     leading dim 1 is shared by every particle. CPU tensors take `nn_plain`;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel with `plan` (default `nn_plan`)."""
     Pq, Ns, P, Nm = _batched_shapes(query, ref)
     device = ref.device
     if not _route("K2", device, P=P, Ns=Ns, Nm=Nm):
         return nn_plain(query, ref)
-    _check("query", query, (Pq, Ns, 3), torch.float32, device)
-    _check("ref", ref, (P, Nm, 3), torch.float32, device)
-    lib, _ = build()
+    _check(device, ("query", query, (Pq, Ns, 3), torch.float32),
+           ("ref", ref, (P, Nm, 3), torch.float32))
+    plan = plan or nn_plan(P, Ns, Nm)
     d2 = torch.empty((P, Ns), dtype=torch.float32, device=device)
     idx = torch.empty((P, Ns), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nn_launch(query.data_ptr(), ref.data_ptr(), d2.data_ptr(),
-                            idx.data_ptr(), P, Pq, Ns, Nm, stream)
-    _raise_on(err, "nn")
+    _launch("nn", device, _entry_points()[1], query.data_ptr(), ref.data_ptr(),
+            d2.data_ptr(), idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
     nn_batched.launches += 1
     return idx, d2
 
@@ -284,11 +383,12 @@ def nn_gn_batched(
     maxd2: float,
     min_cos: float,
     tau2: float = 0.0,
+    plan: Plan | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """K3, fused NN search + correspondence gates + normal equations:
     returns (H [P,6,6], g [P,6], wsum [P], hits [P], wrr [P]). CPU tensors
-    take `nn_gn_plain`; CUDA tensors launch the kernel (two launches on
-    the stream: the per-tile sums, then their sum in tile order)."""
+    take `nn_gn_plain`; CUDA tensors launch the kernel once with `plan`
+    (default `gn_plan` of the shapes)."""
     if scene_c.dim() != 2 or ref_c.dim() != 3:
         raise ValueError("scene_c must be [Ns,3] and ref_c [P,Nm,3]")
     Ns, P, Nm = scene_c.shape[0], ref_c.shape[0], ref_c.shape[1]
@@ -297,28 +397,30 @@ def nn_gn_batched(
         return nn_gn_plain(scene_c, scene_normals, scene_w, ref_c, ref_normals,
                            maxd2=maxd2, min_cos=min_cos, tau2=tau2)
     f32 = torch.float32
-    _check("scene_c", scene_c, (Ns, 3), f32, device)
-    _check("scene_normals", scene_normals, (Ns, 3), f32, device)
-    _check("scene_w", scene_w, (Ns,), f32, device)
-    _check("ref_c", ref_c, (P, Nm, 3), f32, device)
-    _check("ref_normals", ref_normals, (P, Nm, 3), f32, device)
-    lib, _ = build()
-    n_tiles = -(-Ns // lib.nn_gn_query_tile())
-    partial = torch.empty((P, n_tiles, 30), dtype=f32, device=device)
+    _check(device, ("scene_c", scene_c, (Ns, 3), f32),
+           ("scene_normals", scene_normals, (Ns, 3), f32),
+           ("scene_w", scene_w, (Ns,), f32),
+           ("ref_c", ref_c, (P, Nm, 3), f32),
+           ("ref_normals", ref_normals, (P, Nm, 3), f32))
+    plan = plan or gn_plan(P, Ns, Nm)
+    if plan.width != WIDTH:
+        raise ValueError(f"K3 runs groups of {WIDTH} threads, not {plan.width}")
     H = torch.empty((P, 6, 6), dtype=f32, device=device)
     g = torch.empty((P, 6), dtype=f32, device=device)
     wsum, hits, wrr = (torch.empty((P,), dtype=f32, device=device)
                        for _ in range(3))
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nn_gn_launch(
+    partial = arrived = None   # the scene split's block sums and counters
+    if plan.scene_split > 1:
+        partial = torch.empty((P, plan.scene_split, 30), dtype=f32, device=device)
+        arrived = _arrival_counts(device, P)
+    _launch("nn_gn", device, _entry_points()[2],
             scene_c.data_ptr(), scene_normals.data_ptr(), scene_w.data_ptr(),
-            ref_c.data_ptr(), ref_normals.data_ptr(), partial.data_ptr(),
-            H.data_ptr(), g.data_ptr(), wsum.data_ptr(), hits.data_ptr(),
-            wrr.data_ptr(), P, Ns, Nm, float(maxd2), float(min_cos),
-            float(tau2), stream,
-        )
-    _raise_on(err, "nn_gn")
+            ref_c.data_ptr(), ref_normals.data_ptr(), H.data_ptr(), g.data_ptr(),
+            wsum.data_ptr(), hits.data_ptr(), wrr.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            arrived.data_ptr() if arrived is not None else None,
+            P, Ns, Nm, plan.q, plan.groups, plan.scene_split, float(maxd2),
+            float(min_cos), float(tau2))
     nn_gn_batched.launches += 1
     return H, g, wsum, hits, wrr
 

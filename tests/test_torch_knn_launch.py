@@ -1,0 +1,96 @@
+"""The CUDA kernels' launch plans and build cache, which stay in Python and
+run without a card.
+
+- Every shape that chip_smoke.py times on the main path (NN_SHAPES for K1
+  and K2, GN_SHAPES for K3) gets a plan that covers all of Ns and Nm, with
+  at most MAX_GROUPS thread groups and at most MAX_SCENE_SPLIT blocks per
+  particle, and follows the plan rule of ops/knn_cuda.py.
+- The library's name hashes the nvcc flags and every `*.cu` and `*.cuh`
+  in csrc/: editing the shared search header rebuilds.
+"""
+import shutil
+
+import pytest
+
+import chip_smoke
+from icra20_hand_object_pose_tpu_torch.ops import knn_cuda
+
+def _check_covers(plan, Ns, Nm):
+    assert plan.q in (1, 2, 4)
+    assert plan.width in (knn_cuda.SMALL_WIDTH, knn_cuda.WIDTH)
+    assert 1 <= plan.groups <= knn_cuda.MAX_GROUPS
+    assert 1 <= plan.scene_split <= knn_cuda.MAX_SCENE_SPLIT
+    # the query (scene) tiles cover Ns, and no block of a split is idle
+    tiles = knn_cuda._tiles(Ns, plan.q, plan.width)
+    assert tiles * plan.q * plan.width >= Ns > (tiles - 1) * plan.q * plan.width
+    assert plan.scene_split <= tiles
+    # the groups' contiguous ranges of ceil(Nm / groups) cover Nm
+    per = -(-Nm // plan.groups)
+    assert plan.groups * per >= Nm and per >= 1
+
+
+@pytest.mark.parametrize("P,Ns,Nm", chip_smoke.NN_SHAPES)
+def test_nn_plan_covers_main_path_shapes(P, Ns, Nm):
+    plan = knn_cuda.nn_plan(P, Ns, Nm)
+    _check_covers(plan, Ns, Nm)
+    assert plan.scene_split == 1
+    if plan.q == 4:         # one block per tile of 4 x 128 queries fills the card
+        assert P * knn_cuda._tiles(Ns, 4) >= 2 * knn_cuda.SMS
+    else:                   # else narrow tiles, the reference split over groups
+        assert plan.width == knn_cuda.SMALL_WIDTH
+        assert -(-Nm // plan.groups) >= min(Nm, knn_cuda.MIN_RANGE)
+
+
+@pytest.mark.parametrize("P,Ns,Nm", chip_smoke.GN_SHAPES)
+def test_gn_plan_covers_main_path_shapes(P, Ns, Nm):
+    plan = knn_cuda.gn_plan(P, Ns, Nm)
+    _check_covers(plan, Ns, Nm)
+    assert plan.width == knn_cuda.WIDTH
+    if plan.q == 4:         # one block per particle where particles fill the card
+        assert plan.scene_split == 1 and P >= 2 * knn_cuda.SMS
+    else:                   # else the scene splits until the card fills or runs out
+        full = P * plan.scene_split >= 2 * knn_cuda.SMS
+        limit = min(knn_cuda.MAX_SCENE_SPLIT, knn_cuda._tiles(Ns, 1))
+        assert full or plan.scene_split == limit
+
+
+@pytest.mark.parametrize("P,Ns,Nm", [(1, 1, 1), (7, 4096, 5000), (65535, 33, 9)])
+def test_plans_cover_edge_shapes(P, Ns, Nm):
+    _check_covers(knn_cuda.nn_plan(P, Ns, Nm), Ns, Nm)
+    _check_covers(knn_cuda.gn_plan(P, Ns, Nm), Ns, Nm)
+
+
+def test_main_path_plans():
+    """The plans the device-time sweeps chose at the main-path shapes: the
+    in-scan and the tracked and init scans fill the card with one block per
+    tile of 4 x 128 queries; the explorer and polish searches, too small for
+    that, take 64-query tiles and split the reference cloud over 4 thread
+    groups; K3's explorer pulls split the scene over 4 blocks."""
+    Plan = knn_cuda.Plan
+    assert knn_cuda.nn_plan(512, 512, 256) == Plan(4, 1, 1)
+    assert knn_cuda.nn_plan(32, 512, 256) == Plan(2, 4, 1, 64)
+    assert knn_cuda.nn_plan(18, 2048, 1024) == Plan(1, 4, 1, 64)
+    assert knn_cuda.gn_plan(512, 512, 256) == Plan(4, 1, 1)
+    assert knn_cuda.gn_plan(32, 512, 256) == Plan(1, 2, 4)
+    assert knn_cuda.gn_plan(1024, 512, 512) == Plan(4, 1, 1)
+
+
+@pytest.mark.parametrize("name,hashed", [("nn_search.cuh", True), ("nn_gather.cu", True),
+                                         ("nn_gn.cu", True), ("NOTES.txt", False)])
+def test_library_name_hashes_sources_and_headers(tmp_path, name, hashed):
+    src = tmp_path / "csrc"
+    shutil.copytree(knn_cuda.CSRC, src)
+    before = knn_cuda.library_name(src)
+    assert before == knn_cuda.library_name(knn_cuda.CSRC)
+    with open(src / name, "a") as f:
+        f.write("\n// edited\n")
+    assert (knn_cuda.library_name(src) != before) == hashed
+
+
+def test_build_compiles_only_cu_files():
+    """The header is hashed but compiled only through the sources that
+    include it."""
+    assert (knn_cuda.CSRC / "nn_search.cuh").exists()
+    assert sorted(p.name for p in knn_cuda.CSRC.glob("*.cu")) == ["nn_gather.cu", "nn_gn.cu"]
+    for src in knn_cuda.CSRC.glob("*.cu"):
+        assert '#include "nn_search.cuh"' in src.read_text()
