@@ -14,8 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      one nvcc per source started together, into one library; prints
      ptxas' register and spill report;
   3. kernels, each against its plain PyTorch version on the card, timed:
-     - K1 at the tracked frame's shapes (in-scan, explorer, polish/support),
-       shared and per-particle queries, plus a ragged case, then the tie
+     - K1 at the tracked frame's shapes (in-scan, explorer, polish/support)
+       and the init frame's (in-scan and prescreen support: 1024 x 512 x
+       512, polish: 17 x 2048 x 1024), shared and per-particle queries, plus a ragged case, then the tie
        cases (every reference point duplicated across the ranges a block's
        thread groups split the cloud into): the same indices, d2 bitwise
        equal, matched points and normals bitwise equal;
@@ -48,17 +49,42 @@ Phases, in order; any failure raises and the script exits non-zero:
      0) re-initialises, under torch.profiler;
   6. nn_fn: 3 tracked frames with Estimator(nn_fn=make_nn_fn()) seeded at
      the ground truth: K2 launched, K1 not, ADD-S < 5 mm;
-  7. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  7. sequence: the command line's `demo` at full width, in-process, in a
+     temporary directory (VGA, 512 particles, the default EstimatorConfig,
+     box, T42 hand, SyntheticSequenceConfig's defaults: 2 degrees and 4 mm
+     per frame, 1 mm noise, 2% dropout, joint offset 0.05 rad): 8 frames
+     rastered on the card, saved in the recorded layout, read back, tracked
+     from a cold start, then `eval` on what it wrote, with the pose files
+     as `--ref-poses` of the jsonl dump. Both return 0; the promised files
+     exist; the PNG round trip is within half a depth unit of the generated
+     frames; frame 0 re-initialised and no later frame did; frame 0 or
+     frame 1 within ADD-S 10% of the diameter, frames 2-7 under 5 mm; the
+     parity report of the dump against itself reads identical; K1 launched
+     and K2, K3 not;
+  8. checkpoint: frames 0-3 of that sequence, Tracker.save, a second
+     Tracker that loads it, frames 4-7 with both: poses bitwise equal, and
+     the whole run bitwise equal to the poses phase 7 wrote; then a forced
+     watchdog re-initialises with the default configuration,
+     under torch.profiler;
+  9. pixel mode: 3 frames of the sequence tracked from the ground truth
+     under ScoreConfig(mode="pixel"): no re-init, ADD-S < 5 mm; then one
+     more frame under torch.profiler;
+  10. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Each path phase sets every launch count to 0 just before it and reads the
 counts just after; the JSON line's `launches` are those of the path that
-carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6).
+carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6). Phases 7-9 run
+K1 too and print their own counts. Each path phase also reads the (P, Ns,
+Nm) of every launch it made and fails if phase 3 did not hold that kernel
+against its plain version at that shape.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPLACES = {
@@ -71,11 +97,15 @@ SOURCE = {
     "K2": "icra20_hand_object_pose_tpu_torch/csrc/nn_gather.cu",
     "K3": "icra20_hand_object_pose_tpu_torch/csrc/nn_gn.cu",
 }
-# (P, Ns, Nm) that the tracked frame hands K1 (and K2 through nn_fn):
+# (P, Ns, Nm) that a frame hands K1 (and K2 through nn_fn). Tracked:
 # in-scan ICP and support on the 512 x 256 subsets, the 32 explorer seeds on
 # the same subsets, the polish and fine-tier support on the full clouds
-# (1 + 8 top + 1 explorer + 8 slides = 18 candidates), and one ragged case
-NN_SHAPES = [(512, 512, 256), (32, 512, 256), (18, 2048, 1024), (3, 37, 73)]
+# (1 + 8 top + 1 explorer + 8 slides = 18 candidates). Init: the in-scan ICP
+# of 1024 particles and the prescreen's support re-rank of its best 1024
+# candidates, both on 512 scene x 512 model points, and the polish without
+# an explorer candidate (17). And one ragged case
+NN_SHAPES = [(512, 512, 256), (32, 512, 256), (18, 2048, 1024),
+             (1024, 512, 512), (17, 2048, 1024), (3, 37, 73)]
 # tie cases, checked only: the polish shape and the ragged one with every
 # reference point duplicated across the split ranges (see `_ties`)
 TIE_SHAPES = [(18, 2048, 1024), (3, 37, 73)]
@@ -89,6 +119,9 @@ GN_CHECKS = [(32, 512, 256, True), (3, 4096, 256, False)]
 # published H100 SXM peaks: FP32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# `cli demo` of the sequence phase: VGA, 512 particles, everything else the
+# command's and EstimatorConfig's defaults
+DEMO = dict(frames=8, width=640, height=480, particles=512)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -412,7 +445,7 @@ def sweep_phase(knn_cuda, dev) -> None:
               f"{' *' if plan == chosen else ''}", flush=True)
 
     for gather in (True, False):
-        for P, Ns, Nm in NN_SHAPES[:3]:
+        for P, Ns, Nm in NN_SHAPES[:4]:
             chosen = knn_cuda.nn_plan(P, Ns, Nm)
             for q in (1, 2, 4):
                 for groups in (1, 2, 4):
@@ -465,48 +498,71 @@ class Scene:
         self.hand_q = np.asarray([0.45, 0.45], np.float32)
         self.depth = render_frame_fast(
             self.mesh, self.pose_gt, self.hand, self.hand_base, self.hand_q,
-            self.cam, noise_sigma=0.001, rng=np.random.default_rng(0))
+            self.cam, noise_sigma=0.001, rng=np.random.default_rng(0),
+            device="cpu")   # the host splat: the same frame in every run
         self.dense, _ = self.mesh.sample_surface(8192, seed=123)
 
     def step(self, tracker, label: str, profiled: bool = False):
-        """One Tracker.step, timed to the pose on the host (under
-        torch.profiler when `profiled`); returns (result, ms, ADD-S mm)."""
-        import contextlib
+        """One Tracker.step on the static frame; see `timed_step`."""
+        return timed_step(tracker, self, self.pose_gt, self.dense, label, profiled)
 
-        import numpy as np
-        import torch
-        from torch.profiler import ProfilerActivity, profile
 
-        from icra20_hand_object_pose_tpu_torch import evaluation
+def timed_step(tracker, fr, pose_gt, dense, label: str, profiled: bool = False):
+    """One Tracker.step on `fr` (.depth, .hand_base, .hand_q), timed to the
+    pose on the host (under torch.profiler when `profiled`); returns
+    (result, ms, ADD-S mm against pose_gt)."""
+    import contextlib
 
-        torch.cuda.synchronize()
-        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-              if profiled else contextlib.nullcontext()) as prof:
-            t0 = time.perf_counter()
-            res = tracker.step(self.depth, self.hand_base, self.hand_q)
-            pose = res.pose.cpu().numpy()
-            ms = 1000.0 * (time.perf_counter() - t0)
-        if profiled:
-            report_profile(prof, ms)
-        check(pose.shape == (4, 4) and bool(np.isfinite(pose).all()),
-              f"{label}: pose not finite")
-        adds = 1000.0 * evaluation.add_s_error(pose, self.pose_gt, self.dense)
-        print(f"{label}: {ms:.2f} ms, ADD-S {adds:.3f} mm, reinitialized "
-              f"{res.reinitialized}, fitness {float(res.fitness):.4f}, "
-              f"coverage {float(res.coverage):.4f}", flush=True)
-        return res, ms, adds
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from icra20_hand_object_pose_tpu_torch import evaluation
+
+    torch.cuda.synchronize()
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if profiled else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        res = tracker.step(fr.depth, fr.hand_base, fr.hand_q)
+        pose = res.pose.cpu().numpy()
+        ms = 1000.0 * (time.perf_counter() - t0)
+    if profiled:
+        report_profile(prof, ms)
+    check(pose.shape == (4, 4) and bool(np.isfinite(pose).all()),
+          f"{label}: pose not finite")
+    adds = 1000.0 * evaluation.add_s_error(pose, pose_gt, dense)
+    print(f"{label}: {ms:.2f} ms, ADD-S {adds:.3f} mm, reinitialized "
+          f"{res.reinitialized}, fitness {float(res.fitness):.4f}, "
+          f"coverage {float(res.coverage):.4f}", flush=True)
+    return res, ms, adds
 
 
 def reset_counts(knn_cuda) -> None:
     for fn in (knn_cuda.nn_gather_batched, knn_cuda.nn_batched,
                knn_cuda.nn_gn_batched):
         fn.launches = 0
+        fn.shapes.clear()
 
 
 def counts(knn_cuda) -> dict:
     return {"K1": knn_cuda.nn_gather_batched.launches,
             "K2": knn_cuda.nn_batched.launches,
             "K3": knn_cuda.nn_gn_batched.launches}
+
+
+def check_shapes(knn_cuda, path: str) -> None:
+    """Every (P, Ns, Nm) launched since the last reset must be one that the
+    kernel phases held against the plain version (K1/K2: NN_SHAPES, K3:
+    GN_SHAPES); prints the launches by shape."""
+    seen = {"K1": knn_cuda.nn_gather_batched.shapes,
+            "K2": knn_cuda.nn_batched.shapes,
+            "K3": knn_cuda.nn_gn_batched.shapes}
+    print(f"{path} launches by (P, Ns, Nm): "
+          f"{ {k: dict(v) for k, v in seen.items() if v} }", flush=True)
+    for k, shapes in seen.items():
+        unchecked = set(shapes) - set(GN_SHAPES if k == "K3" else NN_SHAPES)
+        check(not unchecked, f"{path} launched {k} at {sorted(unchecked)}, "
+              f"where no kernel phase checks it against its plain version")
 
 
 def track_phase(sc: Scene, knn_cuda) -> int:
@@ -530,6 +586,7 @@ def track_phase(sc: Scene, knn_cuda) -> int:
     print(f"Tracker.step: {steady:.2f} ms/frame (frames 1-4; frame 0 "
           f"{frame_ms[0]:.2f} ms), launches in 5 frames {n}", flush=True)
     sc.step(tracker, "profiled track frame", profiled=True)
+    check_shapes(knn_cuda, "track path")
     return n["K1"]
 
 
@@ -584,6 +641,7 @@ def cold_start_phase(sc: Scene, knn_cuda) -> int:
     check(res.reinitialized, "the forced watchdog did not re-initialise")
     n = counts(knn_cuda)
     print(f"cold-start path launches (5 frames + forced re-init): {n}", flush=True)
+    check_shapes(knn_cuda, "cold-start path")
     return n["K3"]
 
 
@@ -607,7 +665,216 @@ def nn_fn_phase(sc: Scene, knn_cuda) -> int:
     check(n["K2"] > 0 and n["K1"] == 0, f"nn_fn path launches {n}")
     print(f"nn_fn path: {sum(ms[1:]) / 2:.2f} ms/frame (frames 1-2), "
           f"launches in 3 frames {n}", flush=True)
+    check_shapes(knn_cuda, "nn_fn path")
     return n["K2"]
+
+
+def sequence_phase(knn_cuda, dev, work: str) -> dict:
+    """`cli demo` at VGA with 512 particles, then `cli eval` on its output;
+    returns what the later phases need (sequence directory, camera, mesh,
+    dense cloud, the tracked frames' mean ms)."""
+    import numpy as np
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch import cli, evaluation, parity
+    from icra20_hand_object_pose_tpu_torch.datasets import (
+        SyntheticSequenceConfig, generate_sequence,
+    )
+    from icra20_hand_object_pose_tpu_torch.datasets.sequence import RecordedSequence
+    from icra20_hand_object_pose_tpu_torch.models import make_t42_hand
+    from icra20_hand_object_pose_tpu_torch.ops import render
+    from icra20_hand_object_pose_tpu_torch.utils import meshio
+
+    n_frames = DEMO["frames"]
+    out = os.path.join(work, "demo")
+    reset_counts(knn_cuda)
+    rc = cli.main(["demo", "--out", out]
+                  + [a for k, v in DEMO.items() for a in (f"--{k}", str(v))])
+    n = counts(knn_cuda)
+    check(rc == 0, f"cli demo returned {rc}")
+    check(n["K1"] > 0 and n["K2"] == 0 and n["K3"] == 0,
+          f"sequence path launches {n}: K1 must carry it alone")
+    check_shapes(knn_cuda, "sequence path")
+    seq_dir = os.path.join(out, "sequence")
+    promised = ["metrics.jsonl", "summary.json", "sequence/cam_K.txt",
+                "sequence/meta.json"]
+    for i in range(n_frames):
+        promised += [f"poses/{i:06d}.txt"] + [
+            f"sequence/{sub}/{i:06d}.{ext}" for sub, ext in (
+                ("depth", "png"), ("rgb", "png"), ("pose_gt", "txt"),
+                ("hand_base", "txt"), ("hand_q", "txt"))]
+    missing = [p for p in promised if not os.path.exists(os.path.join(out, p))]
+    check(not missing, f"cli demo did not write {missing}")
+
+    # the same sequence again (one seed, one device): what was saved must
+    # read back within half a 16-bit depth unit of what was generated
+    mesh = meshio.make_test_object("box")
+    seq = RecordedSequence(seq_dir)
+    cam = seq.camera
+    check((cam.width, cam.height) == (DEMO["width"], DEMO["height"])
+          and abs(cam.fx - 0.9 * DEMO["width"]) < 1e-3, f"camera {cam}")
+    hand = make_t42_hand(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = generate_sequence(
+        mesh, hand, SyntheticSequenceConfig(n_frames=n_frames, camera=cam),
+        device=dev)
+    gen_ms = 1000.0 * (time.perf_counter() - t0) / n_frames
+    check(len(seq) == n_frames, f"{len(seq)} frames read back")
+    for fr, rec in zip(frames, seq):
+        err = float(np.abs(rec.depth - fr.depth).max())
+        check(err <= 0.5 * cam.depth_scale + 1e-6,
+              f"frame {rec.index}: depth round trip off by {err:.6f} m")
+        check(float(np.abs(rec.pose_gt - fr.pose_gt).max()) < 1e-6
+              and float(np.abs(rec.hand_base - fr.hand_base).max()) < 1e-6,
+              f"frame {rec.index}: poses read back differ")
+        check(rec.rgb is not None and bool((rec.rgb == fr.rgb).all()),
+              f"frame {rec.index}: rgb read back differs")
+    cover = float(np.mean(frames[0].depth > 0))
+    check(0.01 < cover < 0.5, f"frame 0 covers {cover:.3f} of the image")
+    scene = mesh.transformed(frames[0].pose_gt).merged(
+        hand.merged_mesh(np.asarray([0.5, 0.5], np.float32)).transformed(
+            frames[0].hand_base))
+    verts = torch.as_tensor(np.asarray(scene.vertices, np.float32), device=dev)
+    faces = torch.as_tensor(np.asarray(scene.faces, np.int64), device=dev)
+    raster_ms = time_ms(lambda: render.raster_depth(
+        verts, faces, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+        height=cam.height, width=cam.width), 3)
+    print(f"sequence: raster_depth {raster_ms:.2f} ms/frame on the card "
+          f"({faces.shape[0]} faces at {cam.width}x{cam.height}), "
+          f"generate_sequence {gen_ms:.2f} ms/frame incl. host noise and "
+          f"shading, frame 0 covers {100 * cover:.1f}% of the image", flush=True)
+
+    recs = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    check(len(recs) == n_frames, f"{len(recs)} metric records")
+    reinit = [bool(r["reinitialized"]) for r in recs]
+    check(reinit == [True] + [False] * (n_frames - 1), f"re-inits {reinit}")
+    dense, _ = mesh.sample_surface(8192, seed=123)
+    poses = parity.load_pose_dump(os.path.join(out, "poses"))
+    adds = [1000.0 * evaluation.add_s_error(p, fr.pose_gt, dense)
+            for p, fr in zip(poses, frames)]
+    check(all(np.isfinite(p).all() and p.shape == (4, 4) for p in poses),
+          "a pose is not finite")
+    limit = 0.1 * 1000.0 * mesh.diameter()
+    check(adds[0] < limit or adds[1] < limit,
+          f"init missed: ADD-S {adds[0]:.3f} / {adds[1]:.3f} mm, limit {limit:.3f} mm")
+    check(max(adds[2:]) < 5.0, f"tracked frames 2-7 ADD-S {adds[2:]} >= 5 mm")
+    ms = [r["ms"] for r in recs]
+    track_ms = sum(ms[1:]) / (n_frames - 1)
+    print(f"sequence: init frame {ms[0]:.2f} ms, frames 1-7 {track_ms:.2f} "
+          f"ms/frame; ADD-S mm per frame {[round(a, 3) for a in adds]}; "
+          f"launches in 8 frames {n}", flush=True)
+
+    mesh_path = os.path.join(work, "box.obj")
+    meshio.save_obj(mesh, mesh_path)
+    rc = cli.main(["eval", "--poses", os.path.join(out, "metrics.jsonl"),
+                   "--data", seq_dir, "--object", mesh_path,
+                   "--ref-poses", os.path.join(out, "poses"),
+                   "--device", str(dev)])
+    check(rc == 0, f"cli eval returned {rc}")
+    rep = parity.compare_pose_sequences(
+        parity.load_pose_dump(os.path.join(out, "metrics.jsonl")), poses, dense)
+    check(rep.identical and rep.n_identical == n_frames,
+          f"a dump against itself is not identical: {rep}")
+    return dict(seq=seq, mesh=mesh, hand=hand, dense=dense, poses=poses,
+                track_ms=track_ms)
+
+
+def _demo_estimator(sq: dict, dev, **score):
+    """The Estimator that `cli demo` built for the sequence (with fields of
+    its ScoreConfig replaced by `score`)."""
+    import argparse
+    import dataclasses
+
+    from icra20_hand_object_pose_tpu_torch import cli
+    from icra20_hand_object_pose_tpu_torch.models import Estimator, ObjectModel
+
+    _, cfg = cli.demo_config(argparse.Namespace(**{"config": None, **DEMO}))
+    cfg = dataclasses.replace(cfg, score=dataclasses.replace(cfg.score, **score))
+    obj = ObjectModel(sq["mesh"], model_points=cfg.model_points, device=dev)
+    return Estimator(obj, sq["hand"], cfg)
+
+
+def checkpoint_phase(sq: dict, knn_cuda, dev, work: str) -> None:
+    """Frames 0-3 from a cold start, save; a second Tracker loads and both
+    track frames 4-7: bitwise equal poses."""
+    import numpy as np
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.models import Tracker
+
+    est = _demo_estimator(sq, dev)
+    seq = sq["seq"]
+    path = os.path.join(work, "tracker_ckpt")
+    reset_counts(knn_cuda)
+    whole, poses = Tracker(est), []
+    for i in range(len(seq)):
+        fr = seq[i]
+        poses.append(whole.step(fr.depth, fr.hand_base, fr.hand_q).pose)
+        if i == 3:
+            whole.save(path)
+    resumed = Tracker(est, seed=1)
+    resumed.load(path)
+    check(resumed.state.frame_idx == 4 and resumed.state.pose.device == poses[0].device,
+          f"loaded state {resumed.state.frame_idx} on {resumed.state.pose.device}")
+    for i in range(4, len(seq)):
+        fr = seq[i]
+        out = resumed.step(fr.depth, fr.hand_base, fr.hand_q)
+        check(out.frame_idx == i and not out.reinitialized,
+              f"resumed frame {i}: idx {out.frame_idx}, reinit {out.reinitialized}")
+        check(bool(torch.equal(out.pose, poses[i])),
+              f"resumed frame {i} differs from the uninterrupted run")
+    check(all(np.array_equal(p.cpu().numpy(), q.astype(np.float32))
+              for p, q in zip(poses, sq["poses"])),
+          "the run through the API does not repeat the command line's poses")
+    print(f"checkpoint: frames 4-7 of the resumed Tracker bitwise equal to the "
+          f"uninterrupted run; the run repeats the command line's poses "
+          f"bitwise; launches {counts(knn_cuda)}", flush=True)
+    # the default configuration's init program once more, profiled: a forced
+    # watchdog on the last frame
+    before = counts(knn_cuda)
+    whole.state = whole.state._replace(fitness=0.0)
+    last = seq[len(seq) - 1]
+    res, _, _ = timed_step(whole, last, last.pose_gt, sq["dense"],
+                           "profiled default-config re-init", profiled=True)
+    check(res.reinitialized, "the forced watchdog did not re-initialise")
+    after = counts(knn_cuda)
+    print(f"default-config init frame launches "
+          f"{ {k: after[k] - before[k] for k in after} }", flush=True)
+    check_shapes(knn_cuda, "checkpoint path")
+
+
+def pixel_phase(sq: dict, knn_cuda, dev) -> None:
+    """Three tracked frames of the sequence from the ground truth under
+    ScoreConfig(mode="pixel")."""
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.models import Tracker
+
+    seq = sq["seq"]
+    tracker = Tracker(_demo_estimator(sq, dev, mode="pixel"))
+    tracker.state = tracker.state._replace(pose=seq[0].pose_gt, initialized=True,
+                                           fitness=1.0)
+    reset_counts(knn_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    ms, adds = [], []
+    for i in range(3):
+        out, t, a = timed_step(tracker, seq[i], seq[i].pose_gt, sq["dense"],
+                               f"pixel-mode frame {i}")
+        ms.append(t)
+        adds.append(a)
+        check(not out.reinitialized, f"pixel-mode frame {i} re-initialized")
+        check(a < 5.0, f"pixel-mode frame {i}: ADD-S {a:.3f} mm >= 5 mm")
+    n = counts(knn_cuda)
+    check(n["K1"] > 0, "the pixel-mode frames never launched K1")
+    print(f"pixel mode: {sum(ms[1:]) / 2:.2f} ms/frame (frames 1-2; frame 0 "
+          f"{ms[0]:.2f} ms) beside point mode's {sq['track_ms']:.2f} ms/frame; "
+          f"ADD-S mm {[round(a, 3) for a in adds]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {n}",
+          flush=True)
+    timed_step(tracker, seq[3], seq[3].pose_gt, sq["dense"],
+               "profiled pixel-mode frame", profiled=True)
+    check_shapes(knn_cuda, "pixel-mode path")
 
 
 def main(argv: list[str]) -> int:
@@ -649,6 +916,10 @@ def main(argv: list[str]) -> int:
     launches = {"K1": track_phase(sc, knn_cuda),
                 "K3": cold_start_phase(sc, knn_cuda),
                 "K2": nn_fn_phase(sc, knn_cuda)}
+    with tempfile.TemporaryDirectory() as work:
+        sq = sequence_phase(knn_cuda, dev, work)
+        checkpoint_phase(sq, knn_cuda, dev, work)
+        pixel_phase(sq, knn_cuda, dev)
 
     names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)

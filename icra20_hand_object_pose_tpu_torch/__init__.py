@@ -3,9 +3,11 @@ icra20_hand_object_pose_tpu, the occlusion-aware 6-DoF pose tracker of
 objects grasped by adaptive hands.
 
 It mirrors the JAX package's layout and names (utils/, ops/, models/,
-datasets/) and runs the tracked frame (`Tracker.step` in track mode) on a
-CUDA device, with the fused nearest-neighbour + gather search as a CUDA
-kernel (ops/knn_cuda.py, csrc/nn_gather.cu). It imports torch, never jax.
+datasets/, cli, parity, visualize, evaluation) and runs a frame
+(`Tracker.step`, init and track programs) on a CUDA device, with the
+nearest-neighbour searches as hand-written CUDA kernels (ops/knn_cuda.py,
+csrc/). `python -m icra20_hand_object_pose_tpu_torch.cli demo|track|eval`
+drives a recorded sequence end to end. It imports torch, never jax.
 """
 import torch
 

@@ -3,7 +3,8 @@
 `object_from_numpy` and `hand_from_numpy` take plain arrays and plain
 attributes (for example the JAX package's `ObjectModel` / `HandModel`
 fields read with `np.asarray`), so both implementations compute on the
-same samples. Nothing here imports jax.
+same samples; `reseeded_key` stands in for the key of a tracker checkpoint
+that the JAX package wrote. Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -59,3 +60,17 @@ def hand_from_numpy(
     ]
     return HandModel.from_arrays(port_links, n_joints, link_pts, link_normals,
                                  origins, device=device)
+
+
+def reseeded_key(seed: int, frame_idx: int) -> int:
+    """The key a Tracker(seed=seed) of this package holds after `frame_idx`
+    frames. Tracker.load uses it for a checkpoint whose `key` field is the
+    JAX package's threefry key data (a uint32 pair, meaningless to torch's
+    generators): the rest of the state carries over and the random stream
+    continues as this package's own would have."""
+    from .models.estimator import _split
+
+    key = int(seed)
+    for _ in range(int(frame_idx)):
+        key, _ = _split(key)
+    return key

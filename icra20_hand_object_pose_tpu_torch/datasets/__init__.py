@@ -1,7 +1,11 @@
 from .synthetic import (  # noqa: F401
-    SensorModel,
-    apply_sensor_model,
     default_object_pose,
+    SensorModel,
+    SyntheticFrame,
+    SyntheticSequenceConfig,
+    apply_sensor_model,
+    generate_sequence,
     hand_base_for_grasp,
+    render_frame,
     render_frame_fast,
 )

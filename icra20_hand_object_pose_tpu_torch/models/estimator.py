@@ -31,11 +31,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import icp, knn, knn_cuda, preprocess, pso, render, score
+from ..ops import icp, knn_cuda, preprocess, pso, render, score
 from ..utils import rng, se3
 from ..utils.config import EstimatorConfig
 from .hand import HandModel
 from .object_model import ObjectModel
+
+
+def _ckpt_path(path: str) -> str:
+    """np.savez appends .npz when it is missing; do the same on load, so
+    that save('ckpt') / load('ckpt') round-trips."""
+    return path if path.endswith(".npz") else path + ".npz"
+
 
 class FrameResult(NamedTuple):
     pose: torch.Tensor           # [4,4] model->camera
@@ -211,8 +218,8 @@ class Estimator:
         )
         weights = scene.weights
         if hand_flat is not None:
-            d2h = knn.pairwise_sqdist(scene.points, hand_flat)
-            is_hand = torch.amin(d2h, dim=-1) < cfg.hand.segment_dist ** 2
+            is_hand = self.hand.segment_mask(scene.points, hand_flat,
+                                             cfg.hand.segment_dist)
             weights = weights * (~is_hand)
         return scene, weights, hd_lo, hd_hi, hand_delta
 
@@ -562,6 +569,7 @@ class Tracker:
 
     def __init__(self, est: Estimator, seed: int = 0):
         self.est = est
+        self.seed = seed
         self.state = TrackerState(
             pose=torch.eye(4, device=est.device),
             frame_idx=0,
@@ -645,4 +653,69 @@ class Tracker:
             reinitialized=need_init, frame_idx=int(st.frame_idx),
             hyp_poses=out.hyp_poses if H > 1 else None,
             hyp_fitness=out.hyp_fitness if H > 1 else None,
+        )
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the tracker's state to `path` (.npz, the reference's field
+        names; `key` is this tracker's integer key)."""
+        st = self.state
+
+        def arr(x):
+            return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+        extra = {}
+        if st.hyp_poses is not None:
+            extra = dict(hyp_poses=arr(st.hyp_poses),
+                         hyp_fitness=arr(st.hyp_fitness))
+        if st.prev_pose is not None:
+            extra["prev_pose"] = arr(st.prev_pose)
+        if st.hand_delta is not None:
+            extra["hand_delta"] = arr(st.hand_delta)
+        np.savez(
+            _ckpt_path(path),
+            pose=arr(st.pose),
+            frame_idx=np.asarray(st.frame_idx),
+            key=np.asarray(st.key, np.uint64),
+            initialized=np.asarray(bool(st.initialized)),
+            fitness=arr(st.fitness),
+            coverage=arr(st.coverage if st.coverage is not None else 1.0),
+            pose_tracked=np.asarray(st.pose_tracked),
+            **extra,
+        )
+
+    def load(self, path: str) -> None:
+        """Restore the state `save` wrote: tensors go to the estimator's
+        device, `frame_idx` and `key` stay Python ints. A checkpoint of the
+        JAX package loads too: every field but its threefry key carries
+        over, and the key is re-derived from this tracker's seed and the
+        frame index (convert.reseeded_key)."""
+        z = np.load(_ckpt_path(path))
+        t = self.est._tensor
+
+        def opt(name):
+            return t(z[name]) if name in z else None
+
+        frame_idx = int(z["frame_idx"])
+        if z["key"].ndim == 0:
+            key = int(z["key"])
+        else:
+            from ..convert import reseeded_key
+            key = reseeded_key(self.seed, frame_idx)
+        self.state = TrackerState(
+            pose=t(z["pose"]),
+            frame_idx=frame_idx,
+            key=key,
+            initialized=bool(z["initialized"]),
+            fitness=t(z["fitness"]),
+            coverage=t(z["coverage"]) if "coverage" in z else t(1.0),
+            hyp_poses=opt("hyp_poses"),
+            hyp_fitness=opt("hyp_fitness"),
+            prev_pose=opt("prev_pose"),
+            # checkpoints from before the field: a stored prev_pose implies
+            # the pose was tracked
+            pose_tracked=(bool(z["pose_tracked"]) if "pose_tracked" in z
+                          else "prev_pose" in z),
+            hand_delta=opt("hand_delta"),
         )

@@ -3,19 +3,20 @@
 
 The kinematic tree is a Python loop over the links; joint angles are
 tensors with any leading batch shape, so the K sampled finger configs
-are one batched FK instead of a vmap. `segment_mask`, `depth`,
-`depth_union`, `load_hand_spec` and `make_model_o_hand` are not ported yet
-(the estimator makes its hand masks itself).
+are one batched FK instead of a vmap. A hand is the procedural T42 or
+Model O (capsule phalanges on a palm), or a YAML description with mesh
+files or primitives per link (`load_hand_spec`).
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..ops import render
+from ..ops import knn, render
 from ..utils import meshio, rng, se3
 
 
@@ -216,6 +217,45 @@ class HandModel:
         return (torch.sum(support, (1, 2)) - torch.sum(front, (1, 2))
                 - 0.5 * torch.sum(ghost, (1, 2))) / n
 
+    # -- segmentation -------------------------------------------------------
+
+    def segment_mask(
+        self, scene_pts: torch.Tensor, hand_clouds: torch.Tensor,
+        segment_dist: float,
+    ) -> torch.Tensor:
+        """[Ns] bool, true where a scene point belongs to the hand: closer
+        than segment_dist to ANY sampled hand cloud (scene_pts [Ns,3],
+        hand_clouds [K,Nh,3])."""
+        d2 = knn.pairwise_sqdist(scene_pts, hand_clouds.reshape(-1, 3))
+        return torch.amin(d2, dim=-1) < segment_dist * segment_dist
+
+    # -- occlusion ----------------------------------------------------------
+
+    def depth(
+        self, base_pose: torch.Tensor, q: torch.Tensor, *,
+        fx: float, fy: float, cx: float, cy: float, height: int, width: int,
+        radius: int = 1,
+    ) -> torch.Tensor:
+        """Hand depth buffer [H,W] (+inf empty) for finger-occlusion masks."""
+        return self.depth_union(
+            base_pose, self.cloud(base_pose, q), fx=fx, fy=fy, cx=cx, cy=cy,
+            height=height, width=width, radius=radius)
+
+    def depth_union(
+        self, base_pose: torch.Tensor, qs_clouds: torch.Tensor, *,
+        fx: float, fy: float, cx: float, cy: float, height: int, width: int,
+        radius: int = 1,
+    ) -> torch.Tensor:
+        """Conservative occluder depth [H,W]: min-z over the K sampled
+        configs qs_clouds [K,Nh,3] (already in the camera frame; base_pose
+        is kept for the reference's signature)."""
+        pts = qs_clouds.reshape(-1, 3)
+        w = torch.ones(pts.shape[0], dtype=pts.dtype, device=pts.device)
+        return render.splat_depth(
+            pts, w, fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
+            radius=radius,
+        )
+
     def merged_mesh(self, q) -> meshio.Mesh:
         """Host-side posed hand mesh (for synthetic frames)."""
         Ts = self.fk(torch.as_tensor(np.asarray(q, np.float32),
@@ -229,6 +269,115 @@ class HandModel:
         return out
 
 
+# ---------------------------------------------------------------------------
+# File-driven hand description (mesh assets plug in with no code change)
+# ---------------------------------------------------------------------------
+
+def _rpy_matrix(rpy) -> np.ndarray:
+    r, p, y = [float(v) for v in rpy]
+    cr, sr = np.cos(r), np.sin(r)
+    cp, sp = np.cos(p), np.sin(p)
+    cy, sy = np.cos(y), np.sin(y)
+    Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]], np.float32)
+    Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]], np.float32)
+    Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]], np.float32)
+    return Rz @ Ry @ Rx
+
+
+def _spec_mesh(entry: dict, base_dir: str) -> meshio.Mesh:
+    if "mesh" in entry:
+        path = entry["mesh"]
+        if not os.path.isabs(path):
+            path = os.path.join(base_dir, path)
+        return meshio.load_mesh(path)
+    prim = dict(entry["primitive"])
+    kind = prim.pop("kind")
+    makers = {
+        "box": meshio.make_box,
+        "capsule": meshio.make_capsule,
+        "cylinder": meshio.make_cylinder,
+        "sphere": meshio.make_icosphere,
+    }
+    if kind not in makers:
+        raise ValueError(f"unknown primitive kind {kind!r}")
+    return makers[kind](**prim)
+
+
+def load_hand_spec(path: str,
+                   device: torch.device | str = "cuda") -> HandModel:
+    """Build a HandModel from a YAML hand description: each link takes
+    either a mesh file (relative paths resolve against the spec's
+    directory) or a procedural primitive, plus HandLink's kinematic fields:
+
+        n_joints: 2
+        points_per_link: 256        # optional
+        links:
+          - name: palm
+            parent: -1              # index or parent link NAME
+            origin: {xyz: [0,0,0], rpy: [0,0,0]}   # or a 4x4 row-major list
+            primitive: {kind: box, extents: [0.075, 0.028, 0.04]}
+          - name: fA_prox
+            parent: palm
+            origin: {xyz: [0.034, 0.0, 0.018]}
+            axis: [0, 1, 0]
+            joint: 0
+            coupling: -1.0
+            rest: 0.0
+            mesh: meshes/proximal.obj
+    """
+    import yaml
+
+    with open(path) as f:
+        spec = yaml.safe_load(f)
+    base_dir = os.path.dirname(os.path.abspath(path))
+    names: dict[str, int] = {}
+    links: list[HandLink] = []
+    for entry in spec["links"]:
+        parent = entry.get("parent", -1)
+        if isinstance(parent, str):
+            if parent not in names:
+                raise ValueError(
+                    f"link {entry['name']!r}: unknown parent {parent!r} "
+                    "(parents must be declared first)"
+                )
+            parent = names[parent]
+        origin = entry.get("origin", {})
+        if isinstance(origin, list):
+            T = np.asarray(origin, np.float32).reshape(4, 4)
+        else:
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = _rpy_matrix(origin.get("rpy", (0.0, 0.0, 0.0)))
+            T[:3, 3] = np.asarray(origin.get("xyz", (0.0, 0.0, 0.0)), np.float32)
+        joint = int(entry.get("joint", -1))
+        if joint >= spec["n_joints"]:
+            raise ValueError(
+                f"link {entry['name']!r}: joint {joint} out of range "
+                f"(n_joints={spec['n_joints']})"
+            )
+        names[entry["name"]] = len(links)
+        links.append(HandLink(
+            name=entry["name"],
+            mesh=_spec_mesh(entry, base_dir),
+            parent=parent,
+            origin=T,
+            axis=np.asarray(entry.get("axis", (0.0, 0.0, 0.0)), np.float32),
+            joint=joint,
+            coupling=float(entry.get("coupling", 1.0)),
+            rest=float(entry.get("rest", 0.0)),
+        ))
+    return HandModel(
+        links, n_joints=int(spec["n_joints"]),
+        points_per_link=int(spec.get("points_per_link", 256)), device=device,
+    )
+
+
+def _link_origin(t, R=np.eye(3)) -> np.ndarray:
+    M = np.eye(4, dtype=np.float32)
+    M[:3, :3] = R
+    M[:3, 3] = t
+    return M
+
+
 def make_t42_hand(points_per_link: int = 256,
                   device: torch.device | str = "cuda") -> HandModel:
     """Two-finger underactuated gripper approximating the OpenHand T42
@@ -238,12 +387,7 @@ def make_t42_hand(points_per_link: int = 256,
     prox = meshio.make_capsule(radius=0.010, length=0.050)
     dist = meshio.make_capsule(radius=0.008, length=0.040)
 
-    def T(t, R=np.eye(3)):
-        M = np.eye(4, dtype=np.float32)
-        M[:3, :3] = R
-        M[:3, 3] = t
-        return M
-
+    T = _link_origin
     links = [
         HandLink("palm", palm, parent=-1, origin=T([0, 0, 0]), axis=np.zeros(3)),
         HandLink("fA_prox", prox, parent=0, origin=T([+0.034, 0.0, 0.018]),
@@ -256,4 +400,39 @@ def make_t42_hand(points_per_link: int = 256,
                  axis=np.array([0, 1, 0]), joint=1, coupling=+0.7, rest=0.15),
     ]
     return HandModel(links, n_joints=2, points_per_link=points_per_link,
+                     device=device)
+
+
+def make_model_o_hand(points_per_link: int = 256,
+                      device: torch.device | str = "cuda") -> HandModel:
+    """Three-finger underactuated gripper approximating the OpenHand
+    Model O: the hand-base frame of make_t42_hand (palm at the origin,
+    fingers along +z), two opposing fingers on the +x side and a thumb on
+    the -x side, one tendon angle per finger (J=3) with coupled distal
+    joints."""
+    palm = meshio.make_cylinder(radius=0.045, height=0.035, segments=24)
+    prox = meshio.make_capsule(radius=0.010, length=0.055)
+    dist = meshio.make_capsule(radius=0.008, length=0.042)
+    T = _link_origin
+    links = [
+        HandLink("palm", palm, parent=-1, origin=T([0, 0, 0]),
+                 axis=np.zeros(3)),
+    ]
+    # fingers at +x +/- 25mm y (curl toward -x), thumb at -x (curl +x)
+    specs = [
+        ("f1", [+0.034, +0.025, 0.016], np.array([0, 1, 0]), -1.0),
+        ("f2", [+0.034, -0.025, 0.016], np.array([0, 1, 0]), -1.0),
+        ("thumb", [-0.034, 0.0, 0.016], np.array([0, 1, 0]), +1.0),
+    ]
+    for j, (name, base, axis, sgn) in enumerate(specs):
+        pidx = len(links)
+        links.append(HandLink(
+            f"{name}_prox", prox, parent=0, origin=T(base),
+            axis=axis, joint=j, coupling=sgn,
+        ))
+        links.append(HandLink(
+            f"{name}_dist", dist, parent=pidx, origin=T([0.0, 0.0, 0.055]),
+            axis=axis, joint=j, coupling=sgn * 0.7, rest=sgn * 0.15,
+        ))
+    return HandModel(links, n_joints=3, points_per_link=points_per_link,
                      device=device)

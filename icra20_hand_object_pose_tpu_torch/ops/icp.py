@@ -271,3 +271,21 @@ def scene_support(
     hit = (d2 < tau * tau).to(d2.dtype)
     wsum = torch.clamp(torch.sum(scene_weights), min=1e-9)
     return torch.sum(hit * scene_weights[None], dim=-1) / wsum
+
+
+def icp(
+    pose0: torch.Tensor,          # [4,4] model->camera initial pose
+    scene_pts: torch.Tensor,
+    scene_normals: torch.Tensor,
+    scene_weights: torch.Tensor,
+    model_pts: torch.Tensor,
+    model_normals: torch.Tensor,
+    **kwargs,
+) -> tuple[torch.Tensor, IcpStats]:
+    """Single-hypothesis point-to-plane ICP: the P=1 slice of
+    `icp_batched`."""
+    poses, stats = icp_batched(
+        pose0[None], scene_pts, scene_normals, scene_weights,
+        model_pts, model_normals, **kwargs,
+    )
+    return poses[0], IcpStats(*(a[0] for a in stats))

@@ -23,10 +23,12 @@ Two versions of each function live here:
 
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
-other. `<wrapper>.launches` counts kernel launches.
+other. `<wrapper>.launches` counts kernel launches and `<wrapper>.shapes`
+counts them by (P, Ns, Nm).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -340,10 +342,12 @@ def nn_gather_batched(
             matched.data_ptr(), mnormal.data_ptr(), d2.data_ptr(),
             idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
     nn_gather_batched.launches += 1
+    nn_gather_batched.shapes[(P, Ns, Nm)] += 1
     return matched, mnormal, d2, idx
 
 
 nn_gather_batched.launches = 0
+nn_gather_batched.shapes = collections.Counter()
 
 
 def nn_batched(
@@ -367,10 +371,12 @@ def nn_batched(
     _launch("nn", device, _entry_points()[1], query.data_ptr(), ref.data_ptr(),
             d2.data_ptr(), idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
     nn_batched.launches += 1
+    nn_batched.shapes[(P, Ns, Nm)] += 1
     return idx, d2
 
 
 nn_batched.launches = 0
+nn_batched.shapes = collections.Counter()
 
 
 def nn_gn_batched(
@@ -422,10 +428,12 @@ def nn_gn_batched(
             P, Ns, Nm, plan.q, plan.groups, plan.scene_split, float(maxd2),
             float(min_cos), float(tau2))
     nn_gn_batched.launches += 1
+    nn_gn_batched.shapes[(P, Ns, Nm)] += 1
     return H, g, wsum, hits, wrr
 
 
 nn_gn_batched.launches = 0
+nn_gn_batched.shapes = collections.Counter()
 
 
 def make_corr_fn():

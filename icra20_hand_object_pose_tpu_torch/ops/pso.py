@@ -9,8 +9,8 @@ pulls, axial slides, the full-cloud ICP polish, fine-tier scoring and the
 score-only finisher. Every perturbation draws from `gen` (a
 torch.Generator or injected draws). With `gn_fn` (kernel K3) the in-scan
 refine and the explorer pulls run the fused search + normal-equation
-path; the polish keeps `corr_fn`/`nn_fn`. Sharding (`axis_name`) and
-pixel-mode scoring are not ported yet.
+path; the polish keeps `corr_fn`/`nn_fn`. Sharding (`axis_name`) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 from ..utils import se3
 from ..utils.config import IcpConfig, PsoConfig, ScoreConfig
 from . import icp as icp_mod
-from . import score
+from . import render, score
 
 
 class PsoResult(NamedTuple):
@@ -63,28 +63,44 @@ def score_particles(
     mxu_tables: tuple | None = None,
     sample_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Point-mode render-and-compare fitness for every particle:
-    (fitness [P], coverage [P])."""
-    if score_cfg.mode != "point":
-        raise NotImplementedError(
-            f"score mode {score_cfg.mode!r} is not ported yet (point only)")
+    """Render-and-compare fitness for every particle: (fitness [P],
+    coverage [P]). mode="point" (the default): projective per-sample
+    association, no per-particle z-buffer. mode="pixel": one batched splat
+    render [P,h,w] and a per-pixel compare (exact z-buffered semantics)."""
     pts_cam = se3.transform_points(poses, render_pts)
-    nrm_cam = se3.rotate_vectors(poses, render_normals)
-    terms = score.compare_points(
-        pts_cam, nrm_cam, observed_depth, observed_valid, hand_depth,
-        fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
-        depth_tau=score_cfg.depth_tau,
-        wrong_side_penalty=score_cfg.wrong_side_penalty,
-        occlusion_margin=score_cfg.occlusion_margin,
-        invalid_penalty=score_cfg.invalid_penalty,
-        subpixel=subpixel,
-        ghost_dilate=score_cfg.ghost_dilate,
-        observed_enc=observed_enc,
-        mxu_tables=mxu_tables,
-        neutral_cov_exempt=score_cfg.neutral_cov_exempt,
-        sample_mask=sample_mask,
-        mask_count_floor=score_cfg.self_occ_count_floor,
-    )
+    if score_cfg.mode == "point":
+        nrm_cam = se3.rotate_vectors(poses, render_normals)
+        terms = score.compare_points(
+            pts_cam, nrm_cam, observed_depth, observed_valid, hand_depth,
+            fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
+            depth_tau=score_cfg.depth_tau,
+            wrong_side_penalty=score_cfg.wrong_side_penalty,
+            occlusion_margin=score_cfg.occlusion_margin,
+            invalid_penalty=score_cfg.invalid_penalty,
+            subpixel=subpixel,
+            ghost_dilate=score_cfg.ghost_dilate,
+            observed_enc=observed_enc,
+            mxu_tables=mxu_tables,
+            neutral_cov_exempt=score_cfg.neutral_cov_exempt,
+            sample_mask=sample_mask,
+            mask_count_floor=score_cfg.self_occ_count_floor,
+        )
+    else:
+        if sample_mask is not None:
+            render_w = render_w * sample_mask
+        depths = render.splat_depth_batched(
+            pts_cam, render_w, fx=fx, fy=fy, cx=cx, cy=cy,
+            height=height, width=width, radius=splat_radius,
+        )                                                   # [P,h,w]
+        terms = score.compare_depth(
+            depths, observed_depth, observed_valid, hand_depth,
+            depth_tau=score_cfg.depth_tau,
+            wrong_side_penalty=score_cfg.wrong_side_penalty,
+            occlusion_margin=score_cfg.occlusion_margin,
+            invalid_penalty=score_cfg.invalid_penalty,
+            ghost_dilate=score_cfg.ghost_dilate,
+            observed_enc=observed_enc,
+        )
     return terms.fitness + score_cfg.coverage_weight * terms.coverage, terms.coverage
 
 

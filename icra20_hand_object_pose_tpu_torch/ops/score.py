@@ -1,11 +1,12 @@
-"""Render-and-compare hypothesis scoring, point mode (counterpart of
-ops/score.py's `encode_observed`, `pack_quad`, `_bilinear_depth`,
-`_edge_aware_combine` and `compare_points`).
+"""Render-and-compare hypothesis scoring (counterpart of ops/score.py):
+point mode (`compare_points`, with `encode_observed`, `pack_quad`,
+`_bilinear_depth`, `_edge_aware_combine`) and pixel mode (`compare_depth`
+on rendered depth images).
 
-Fitness is higher-better: per visible model sample, support where the
-observed depth agrees within tau, a wrong-side penalty where the sample
-floats in front of a measured surface, a ghost penalty where it projects
-onto no-return pixels; hand-occluded samples are excluded. See the JAX
+Fitness is higher-better: per visible model sample (or rendered pixel),
+support where the observed depth agrees within tau, a wrong-side penalty
+where it floats in front of a measured surface, a ghost penalty where it
+lands on no-return pixels; hand-occluded samples are excluded. See the JAX
 module's header for the full semantics, which are kept unchanged.
 
 Image lookups are plain indexed gathers. The two lookup rules of the
@@ -51,15 +52,81 @@ def encode_observed(
     valid pixels carry depth, no-return pixels _NEAR within `ghost_dilate`
     px of a valid return and _FAR beyond it, neutral pixels _NEUTRAL."""
     if ghost_dilate > 0:
-        k = 2 * ghost_dilate + 1
-        near = F.max_pool2d(observed_valid.to(observed.dtype)[None, None],
-                            kernel_size=k, stride=1, padding=ghost_dilate)[0, 0] > 0
-        fill = torch.where(near, _NEAR, _FAR)
+        fill = torch.where(_near_return(observed_valid, ghost_dilate),
+                           _NEAR, _FAR)
     else:
         fill = torch.full_like(observed, _FAR)
     if neutral is not None:
         fill = torch.where(neutral, _NEUTRAL, fill)
     return torch.where(observed_valid, observed, fill)
+
+
+def _near_return(observed_valid: torch.Tensor, ghost_dilate: int) -> torch.Tensor:
+    """[H,W] bool: within `ghost_dilate` px of a valid return (a SAME-padded
+    (2d+1)^2 OR window)."""
+    k = 2 * ghost_dilate + 1
+    return F.max_pool2d(observed_valid.to(torch.float32)[None, None],
+                        kernel_size=k, stride=1, padding=ghost_dilate)[0, 0] > 0
+
+
+def compare_depth(
+    rendered: torch.Tensor,        # [...,H,W] hypothesis depth (+inf empty)
+    observed: torch.Tensor,        # [H,W] observed depth (0 invalid)
+    observed_valid: torch.Tensor,  # [H,W] bool
+    hand_depth: torch.Tensor | None = None,  # [H,W] (+inf none)
+    *,
+    depth_tau: float = 0.01,
+    wrong_side_penalty: float = 2.0,
+    occlusion_margin: float = 0.005,
+    invalid_penalty: float = 0.3,
+    ghost_dilate: int = 1,
+    observed_enc: torch.Tensor | None = None,
+) -> ScoreTerms:
+    """Score rendered depth image(s) against one observed frame, pixel by
+    pixel; broadcasts over leading particle axes of `rendered`. Rendered
+    pixels within `ghost_dilate` px of a valid return are not ghosts;
+    `observed_enc` (encode_observed's output) carries that band
+    precomputed."""
+    dt = rendered.dtype
+    inf = float("inf")
+    r_valid = torch.isfinite(rendered)
+    if hand_depth is not None:
+        visible = r_valid & ~(hand_depth < rendered - occlusion_margin)
+    else:
+        visible = r_valid
+
+    obs = torch.where(observed_valid, observed, inf)
+    diff = rendered - obs                 # inf - inf only where not counted
+    absdiff = torch.abs(diff)
+
+    counted_px = visible & observed_valid
+    match = counted_px & (absdiff < depth_tau)
+    wrong = counted_px & (diff < -depth_tau)
+    if observed_enc is not None:
+        not_near = observed_enc >= 0.5 * _FAR
+    elif ghost_dilate > 0:
+        not_near = ~_near_return(observed_valid, ghost_dilate)
+    else:
+        not_near = ~observed_valid
+    ghost = visible & (~observed_valid) & not_near
+
+    support_px = torch.where(match, 1.0 - absdiff / depth_tau, 0.0)
+    axes = (-1, -2)
+    support = torch.sum(support_px, dim=axes)
+    n_wrong = torch.sum(wrong.to(dt), dim=axes)
+    n_ghost = torch.sum(ghost.to(dt), dim=axes)
+    n_counted = torch.sum(counted_px.to(dt), dim=axes) + n_ghost
+
+    fitness = (support - wrong_side_penalty * n_wrong
+               - invalid_penalty * n_ghost) / torch.clamp(n_counted, min=1.0)
+    # renders with nothing visible must lose to anything real
+    fitness = torch.where(n_counted > 0, fitness,
+                          torch.full_like(fitness, -wrong_side_penalty))
+
+    n_obs = torch.clamp(torch.sum(observed_valid.to(dt)), min=1.0)
+    coverage = torch.sum(match.to(dt), dim=axes) / n_obs
+    return ScoreTerms(fitness=fitness, coverage=coverage, support=support,
+                      counted=n_counted)
 
 
 def pack_quad(enc: torch.Tensor) -> torch.Tensor:

@@ -137,7 +137,12 @@ def test_port_never_imports_jax():
         "import chip_smoke\n"
         "import icra20_hand_object_pose_tpu_torch as p\n"
         "from icra20_hand_object_pose_tpu_torch import convert, evaluation\n"
+        "from icra20_hand_object_pose_tpu_torch import cli, parity, visualize\n"
         "from icra20_hand_object_pose_tpu_torch import datasets, models, ops, utils\n"
+        "from icra20_hand_object_pose_tpu_torch.datasets import sequence\n"
+        "from icra20_hand_object_pose_tpu_torch.utils import pngio\n"
+        "assert cli.main(['eval', '--poses', 'none', '--data', 'none',\n"
+        "                 '--object', 'none', '--device', 'cpu']) == 2\n"
         "from icra20_hand_object_pose_tpu_torch.ops import icp, knn_cuda, pso\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('icra20_hand_object_pose_tpu.'))\n"

@@ -94,6 +94,23 @@ def test_scene_support(icp_inputs):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
 
 
+def test_icp_single_is_row_zero_of_batched(icp_inputs):
+    scene, scene_n, w, mpts, mnrm, poses0 = icp_inputs
+    kw = dict(iters=3, max_corresp_dist=0.02, gn_reps=3, support_tau=0.012)
+    args = tuple(map(_t, (scene, scene_n, w, mpts, mnrm)))
+    for row in (0, 4):
+        batched, bst = icp.icp_batched(_t(poses0[row:row + 1]), *args, **kw)
+        pose, st = icp.icp(_t(poses0[row]), *args, **kw)
+        assert pose.shape == (4, 4) and st.rmse.shape == ()
+        assert torch.equal(pose, batched[0])
+        for a, b in zip(st, bst):
+            assert torch.equal(a, b[0])
+    ref, ref_st = jicp.icp(jnp.asarray(poses0[4]),
+                           *map(jnp.asarray, (scene, scene_n, w, mpts, mnrm)), **kw)
+    np.testing.assert_allclose(pose.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(st.rmse), float(ref_st.rmse), atol=1e-6)
+
+
 CAM = CameraIntrinsics(width=80, height=60, fx=80.0, fy=80.0, cx=40.0, cy=30.0)
 PATCH = 16
 
@@ -104,7 +121,8 @@ def frame():
     hb = hand_base_for_grasp(T_GT)
     q = np.array([0.45, 0.45], np.float32)
     depth = render_frame_fast(BOX, T_GT, hand, hb, q, CAM, n_points=4096,
-                              noise_sigma=0.001, rng=np.random.default_rng(0))
+                              noise_sigma=0.001, rng=np.random.default_rng(0),
+                              device="cpu")
     quant = 2.0 ** -14
     depth = np.round(depth / quant) * quant
     depth[20:24, 10:60] = 0.0                     # a no-return band

@@ -101,7 +101,8 @@ def test_refine_base_matches_reference_with_injected_draws(seed):
     q_nom = np.asarray([0.45, 0.45], np.float32)
     depth = render_frame_fast(meshio.make_test_object("box"), pose, thand,
                               hb_true, np.asarray([0.6, 0.6], np.float32), cam,
-                              noise_sigma=0.001, rng=np.random.default_rng(seed))
+                              noise_sigma=0.001, rng=np.random.default_rng(seed),
+                              device="cpu")
     # a 3 deg / 5 mm mount error about the camera origin
     g = np.random.default_rng(10 + seed)
     w, v = g.normal(size=3), g.normal(size=3)

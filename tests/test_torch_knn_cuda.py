@@ -63,6 +63,7 @@ def _plan(q, groups, scene_split=1, width=knn_cuda.WIDTH):
 NN_CASES = [
     (1, 512, 512, 256, False, None), (512, 512, 512, 256, False, None),
     (32, 32, 512, 256, False, None), (1, 18, 2048, 1024, False, None),
+    (1, 1024, 512, 512, False, None), (1, 17, 2048, 1024, False, None),
     (3, 3, 37, 73, False, None),
     (1, 18, 2048, 1024, True, None), (1, 32, 512, 256, True, None),
     (1, 4, 300, 1, False, None), (1, 4, 300, 257, True, _plan(1, 2)),
@@ -77,10 +78,12 @@ def test_cuda_kernel_matches_plain(cuda_device, Pq, P, Ns, Nm, ties, plan):
     q, r, n = (torch.tensor(a, device=cuda_device)
                for a in _clouds(Pq, P, Ns, Nm, ties=ties))
     before = knn_cuda.nn_gather_batched.launches
+    before_shape = knn_cuda.nn_gather_batched.shapes[(P, Ns, Nm)]
     m, nm, d2, idx = knn_cuda.nn_gather_batched(q, r, n, plan=plan)
     mp, nmp, d2p, idxp = knn_cuda.nn_gather_plain(q, r, n)
     torch.cuda.synchronize()
     assert knn_cuda.nn_gather_batched.launches == before + 1
+    assert knn_cuda.nn_gather_batched.shapes[(P, Ns, Nm)] == before_shape + 1
     assert torch.equal(idx, idxp) and torch.equal(d2, d2p)
     assert torch.equal(m, mp) and torch.equal(nm, nmp)
 
@@ -151,3 +154,20 @@ def test_cuda_gn_kernel_matches_plain(cuda_device, P, Ns, Nm, ties, plan):
     # bitwise reproducible: every sum runs in a fixed order
     again = knn_cuda.nn_gn_batched(*args, **gates, plan=plan)
     assert all(torch.equal(x, y) for x, y in zip(again, (H, g, wsum, hits, wrr)))
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    """On CPU tensors each wrapper returns its plain version's result, and
+    neither `launches` nor `shapes` moves: they count kernel launches only."""
+    q, r, n = (torch.tensor(a) for a in _clouds(1, 3, 20, 30))
+    gn_args = [torch.tensor(a) for a in _gn_inputs(3, 20, 30)]
+    gates = dict(maxd2=0.02 ** 2, min_cos=0.5, tau2=0.01 ** 2)
+    wrappers = (knn_cuda.nn_gather_batched, knn_cuda.nn_batched,
+                knn_cuda.nn_gn_batched)
+    before = [(w.launches, dict(w.shapes)) for w in wrappers]
+    out = (knn_cuda.nn_gather_batched(q, r, n) + knn_cuda.nn_batched(q, r)
+           + knn_cuda.nn_gn_batched(*gn_args, **gates))
+    ref = (knn_cuda.nn_gather_plain(q, r, n) + knn_cuda.nn_plain(q, r)
+           + knn_cuda.nn_gn_plain(*gn_args, **gates))
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert [(w.launches, dict(w.shapes)) for w in wrappers] == before

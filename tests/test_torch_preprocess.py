@@ -29,7 +29,7 @@ def frame():
         meshio.make_test_object("box"), pose,
         make_t42_hand(points_per_link=64, device="cpu"),
         hb, np.array([0.45, 0.45], np.float32), CAM, n_points=4096,
-        noise_sigma=0.001, rng=np.random.default_rng(0),
+        noise_sigma=0.001, rng=np.random.default_rng(0), device="cpu",
     )
     # speckle, out-of-range and hand-dropped pixels for every mask path
     g = np.random.default_rng(1)
