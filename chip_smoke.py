@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py                  # one CUDA device, from the repo root
     python3 chip_smoke.py --kernels-only   # build + kernel phases, then stop
+    python3 chip_smoke.py --kernels-only --ungrouped   # without the library's
+                                           # grouped shapes (scripts/kernel_ab.sh:
+                                           # a checkout from before them)
     python3 chip_smoke.py --sweep          # build + every launch plan, timed
+    python3 chip_smoke.py --library-only   # build + kernel phases + phases 10-12
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -16,17 +20,23 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels, each against its plain PyTorch version on the card, timed:
      - K1 at the tracked frame's shapes (in-scan, explorer, polish/support)
        and the init frame's (in-scan and prescreen support: 1024 x 512 x
-       512, polish: 17 x 2048 x 1024), shared and per-particle queries, plus a ragged case, then the tie
-       cases (every reference point duplicated across the ranges a block's
-       thread groups split the cloud into): the same indices, d2 bitwise
-       equal, matched points and normals bitwise equal;
+       512, polish: 17 x 2048 x 1024), shared and per-particle queries,
+       plus a ragged case; at the same places of a library sweep of 8
+       objects (8x the particles, one query per object and one shared by
+       all); then the tie cases (every reference point duplicated across
+       the ranges a block's thread groups split the cloud into), ungrouped
+       and grouped: the same indices, d2 bitwise equal, matched points and
+       normals bitwise equal (the plain version of a shape above 2^27
+       pairs runs in 8 slices of the particle axis);
      - K2 at the same shapes: the same indices, d2 bitwise equal;
      - K3 at the tracked scan (512 x 512 x 256), the explorer pulls (32 x
-       512 x 256), the init scan (1024 x 512 x 512) and a ragged case, then
-       a tie case and a 4096-point scene: H, g and wrr within rtol 1e-4
-       plus an atol of 1e-5 x the largest |H| entry of that particle (the
-       two sum in other orders), wsum and hits within 1e-5 relative, a
-       repeated call bitwise equal;
+       512 x 256), the init scan (1024 x 512 x 512) and a ragged case, the
+       same three of a library sweep with a scene per object (8 scenes, the
+       last nearly empty), then tie cases and 4096-point scenes: H, g and
+       wrr within rtol 1e-4 plus an atol of 1e-5 x the largest |H| entry of
+       that particle (the two sum in other orders), wsum and hits within
+       1e-5 relative, a repeated call bitwise equal, and each object's
+       group launched alone bitwise equal to the grouped launch;
      timing columns per shape: device ms per launch (20-50 calls captured
      in one CUDA graph, timed with events: the card's time, host excluded),
      the kernels one call launches (torch.profiler, by name), ms per call
@@ -69,14 +79,39 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. pixel mode: 3 frames of the sequence tracked from the ground truth
      under ScoreConfig(mode="pixel"): no re-init, ADD-S < 5 mm; then one
      more frame under torch.profiler;
-  10. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  10. library, per scene (BASELINE config 5 at its `--sweep-scale` size: 8
+     objects, box / cylinder / sphere / ellipsoid twice, ObjectModel(mesh,
+     seed=i), config 3's camera and sizes, one splat-rendered frame per
+     object): LibrarySweep from init_state(): step 0 re-initialises every
+     object, steps 1-3 track (no healthy object re-initialises); every
+     object within ADD-S 10% of its diameter on step 0 or 1 and under 5 mm
+     on steps 2-3; K1 alone carries it, every launch with one scene per
+     object (never a launch per object); then one tracked step under
+     torch.profiler, printed beside phase 4's single frame (ms, ATen
+     operator calls, device time), failing unless the step issues under 4x
+     the single frame's operator calls; then the per-frame `_scene_prep`
+     loop alone under torch.profiler (its share of the step);
+  11. library, shared scene: 8 models of the box on one frame,
+     shared_scene=True: an init step and 2 tracked steps, all under 5 mm on
+     the tracked steps; object 0's init result bitwise equal to the
+     per-scene path fed 8 copies of the frame with the same seeds;
+  12. library through K2 and K3: one tracked sweep step from the ground
+     truth with nn_fn=make_nn_fn() (K2 launched, K1 not) and one under
+     IcpConfig(fused_gn=True) (K3 launched), each grouped and under 5 mm;
+     save_state, load_state into a second sweep, the next step bitwise
+     equal; `cli sweep` in-process on two recorded sequences (box and
+     cylinder, 3 frames, VGA, the default configuration), its files read
+     back;
+  13. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Each path phase sets every launch count to 0 just before it and reads the
 counts just after; the JSON line's `launches` are those of the path that
-carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6). Phases 7-9 run
-K1 too and print their own counts. Each path phase also reads the (P, Ns,
-Nm) of every launch it made and fails if phase 3 did not hold that kernel
-against its plain version at that shape.
+carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6), and its
+`library_sweep_launches` those of the library paths (K1: phase 10, K2 and
+K3: their step of phase 12); `shapes` holds every timed shape's numbers.
+Phases 7-9 and 11 run K1 too and print their own counts. Each path phase
+also reads the (P, blocks, Ns, Nm) of every launch it made and fails if
+phase 3 did not hold that kernel against its plain version at that shape.
 """
 from __future__ import annotations
 
@@ -106,16 +141,34 @@ SOURCE = {
 # an explorer candidate (17). And one ragged case
 NN_SHAPES = [(512, 512, 256), (32, 512, 256), (18, 2048, 1024),
              (1024, 512, 512), (17, 2048, 1024), (3, 37, 73)]
-# tie cases, checked only: the polish shape and the ragged one with every
-# reference point duplicated across the split ranges (see `_ties`)
-TIE_SHAPES = [(18, 2048, 1024), (3, 37, 73)]
+# the same places of a library sweep of LIB objects, the object axis folded
+# into the particle axis: (P = LIB x particles, Ns, Nm), run with one query
+# (scene) per object (Pq = LIB) and with one shared by all (Pq = 1, the
+# shared-scene mode); and a ragged case (P, Pq, Ns, Nm)
+LIB = 8
+LIB_SHAPES = [(LIB * P, Ns, Nm) for P, Ns, Nm in NN_SHAPES[:5]]
+NN_GROUPED = ([(P, Pq, Ns, Nm) for P, Ns, Nm in LIB_SHAPES for Pq in (1, LIB)]
+              + [(12, 3, 37, 73)])
+# tie cases, checked only (P, Pq, Ns, Nm): the polish shape and the ragged
+# one with every reference point duplicated across the split ranges (see
+# `_ties`), with a shared query and with one per group
+TIE_SHAPES = [(18, 1, 2048, 1024), (3, 1, 37, 73), (LIB * 18, LIB, 2048, 1024),
+              (12, 3, 37, 73)]
 # (P, Ns, Nm) of K3: the tracked scan, the explorer pulls, the init scan,
 # one ragged case
 GN_SHAPES = [(512, 512, 256), (32, 512, 256), (1024, 512, 512), (3, 90, 130)]
-# K3 checks beyond the main path (P, Ns, Nm, ties): the explorer pulls with
-# ties across its model ranges, and a scene larger than one launch covers at
-# once (each block walks 4 chunks)
-GN_CHECKS = [(32, 512, 256, True), (3, 4096, 256, False)]
+# K3 with a scene per object (P, G, Ns, Nm): the sweep's tracked scan,
+# explorer pulls and init scan, and a ragged case
+GN_GROUPED = [(LIB * 512, LIB, 512, 256), (LIB * 32, LIB, 512, 256),
+              (LIB * 1024, LIB, 512, 512), (12, 3, 90, 130)]
+# K3 checks beyond the main path (P, G, Ns, Nm, ties): the explorer pulls
+# with ties across its model ranges, alone and grouped, and a scene larger
+# than one launch covers at once (each block walks 4 chunks)
+GN_CHECKS = [(32, 1, 512, 256, True), (3, 1, 4096, 256, False),
+             (LIB * 32, LIB, 512, 256, True), (6, 2, 4096, 256, True)]
+# the plain versions hold a dense [P, Ns, Nm] distance tensor: above this
+# many pairs they run in slices of the particle axis
+PLAIN_PAIRS = 2 ** 27
 # published H100 SXM peaks: FP32 outside the tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -256,13 +309,38 @@ def nn_bound(P, Pq, Ns, Nm, gather: bool) -> tuple[float, str]:
     return bound(9.0 * P * Ns * Nm, 4.0 * (n_in + n_out))
 
 
-def gn_bound(P, Ns, Nm) -> tuple[float, str]:
+def gn_bound(P, G, Ns, Nm) -> tuple[float, str]:
     """K3: the search's 9 operations per pair plus ~105 per (particle,
-    scene point) for gates, J, r, the 30 products and their sums; scene
+    scene point) for gates, J, r, the 30 products and their sums; G scenes
     (7 floats a point) and posed model (6) read once, H, g, wsum, hits, wrr
     (45 floats a particle) written once."""
     ops = 9.0 * P * Ns * Nm + 105.0 * P * Ns
-    return bound(ops, 4.0 * (7 * Ns + 6 * P * Nm + 45 * P))
+    return bound(ops, 4.0 * (7 * G * Ns + 6 * P * Nm + 45 * P))
+
+
+def in_slices(plain, blocks, refs, n: int):
+    """plain(*blocks, *refs) in `n` slices of the particle axis of `refs`
+    ([P, ...]) and the matching slices of `blocks` ([B, ...], B = 1 or a
+    multiple of n that divides P), concatenated."""
+    import torch
+
+    if n == 1:
+        return plain(*blocks, *refs)
+    step = refs[0].shape[0] // n
+    outs = []
+    for c in range(n):
+        B = blocks[0].shape[0]
+        bs = slice(0, 1) if B == 1 else slice(c * B // n, (c + 1) * B // n)
+        outs.append(plain(*(b[bs] for b in blocks),
+                          *(r[c * step:(c + 1) * step] for r in refs)))
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def plain_slices(P, B, Ns, Nm) -> int:
+    """Slices for `in_slices`: LIB above PLAIN_PAIRS pairs, where the block
+    count allows it."""
+    big = P * Ns * Nm > PLAIN_PAIRS and P % LIB == 0 and (B == 1 or B % LIB == 0)
+    return LIB if big else 1
 
 
 def _plan_kw(plan) -> dict:
@@ -308,16 +386,17 @@ def nn_case(knn_cuda, gen, dev, gather: bool, P, Pq, Ns, Nm, ties=False, plan=No
     if ties:
         _ties(r)
     where = f"P={P} Pq={Pq} Ns={Ns} Nm={Nm}{' ties' if ties else ''} {plan or ''}"
+    n_sl = plain_slices(P, Pq, Ns, Nm)
     if gather:
         n = torch.nn.functional.normalize(
             torch.randn((P, Nm, 3), generator=gen, device=dev), dim=-1)
         run = lambda: knn_cuda.nn_gather_batched(q, r, n, **_plan_kw(plan))
-        plain = lambda: knn_cuda.nn_gather_plain(q, r, n)
+        plain = lambda: in_slices(knn_cuda.nn_gather_plain, (q,), (r, n), n_sl)
         m, nm, d2, idx = run()
         mp, nmp, d2p, idxp = plain()
     else:
         run = lambda: knn_cuda.nn_batched(q, r, **_plan_kw(plan))
-        plain = lambda: knn_cuda.nn_plain(q, r)
+        plain = lambda: in_slices(knn_cuda.nn_plain, (q,), (r,), n_sl)
         idx, d2 = run()
         idxp, d2p = plain()
     torch.cuda.synchronize()
@@ -332,35 +411,41 @@ def nn_case(knn_cuda, gen, dev, gather: bool, P, Pq, Ns, Nm, ties=False, plan=No
     return run, plain, err
 
 
-def nn_phase(knn_cuda, dev, gather: bool) -> dict:
+def nn_phase(knn_cuda, dev, gather: bool, grouped: bool = True) -> dict:
     """K1 (gather) or K2 against its plain version at every main-path shape,
-    shared and per-particle queries, timed; then the tie cases, checked
-    only. Returns the in-scan numbers."""
+    shared and per-particle queries, and at the library sweep's shapes, one
+    query per object and one for all, timed; then the tie cases, checked
+    only. Returns the in-scan numbers, with every shape's under "shapes"."""
     import torch
 
     tag = "K1" if gather else "K2"
     gen = torch.Generator(device=dev).manual_seed(0 if gather else 1)
     max_err, res = 0.0, {}
-    for P, Ns, Nm in NN_SHAPES:
-        for Pq in (1, P):
-            run, plain, err = nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm)
-            max_err = max(max_err, err)
-            t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
-            b_ms, b_by = nn_bound(P, Pq, Ns, Nm, gather)
-            report(tag, f"P={P} Pq={Pq} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'nn_plan', P, Ns, Nm)}",
-                   t, b_ms, b_by, P * Ns * Nm)
-            res[(P, Pq, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
-    for P, Ns, Nm in TIE_SHAPES:
-        max_err = max(max_err, nn_case(knn_cuda, gen, dev, gather, P, 1, Ns, Nm,
+    cases = [(P, Pq, Ns, Nm) for P, Ns, Nm in NN_SHAPES for Pq in (1, P)]
+    for P, Pq, Ns, Nm in cases + (NN_GROUPED if grouped else []):
+        run, plain, err = nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm)
+        max_err = max(max_err, err)
+        t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
+        b_ms, b_by = nn_bound(P, Pq, Ns, Nm, gather)
+        report(tag, f"P={P} Pq={Pq} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'nn_plan', P, Ns, Nm)}",
+               t, b_ms, b_by, P * Ns * Nm)
+        res[(P, Pq, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    for P, Pq, Ns, Nm in TIE_SHAPES if grouped else TIE_SHAPES[:2]:
+        max_err = max(max_err, nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm,
                                        ties=True)[2])
-    return dict(max_abs_err=max_err, **res[(512, 1, 512, 256)])
+    return dict(max_abs_err=max_err, **res[(512, 1, 512, 256)],
+                shapes={f"P={P} Pq={Pq} Ns={Ns} Nm={Nm}": v
+                        for (P, Pq, Ns, Nm), v in res.items()})
 
 
-def gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties=False, plan=None):
+def gn_case(knn_cuda, gen, dev, P, G, Ns, Nm, ties=False, plan=None):
     """One K3 case against its plain version: H, g and wrr within rtol 1e-4
     plus 1e-5 x the particle's largest |H| entry, wsum and hits within 1e-5
-    relative, finite, and a repeated call bitwise equal. Returns (run,
-    plain, max |err| over H, g, wrr)."""
+    relative, finite, and a repeated call bitwise equal. With G > 1 scenes
+    the last one is left nearly empty (5 points of weight: its particles,
+    and only they, must read wsum <= 5), and each group launched alone must
+    give the grouped launch's bits. Returns (run, plain, max |err| over H,
+    g, wrr)."""
     import math
 
     import torch
@@ -368,22 +453,31 @@ def gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties=False, plan=None):
     gates = dict(maxd2=0.02 ** 2, min_cos=math.cos(math.radians(60.0)),
                  tau2=0.01 ** 2)
     # anchored clouds of object size; scene padding rows far out, weight 0
-    scene = _cloud(gen, (Ns, 3), dev, scale=0.1, centre=0.0)
+    scene = _cloud(gen, (G, Ns, 3), dev, scale=0.1, centre=0.0)
     snrm = torch.nn.functional.normalize(
-        torch.randn((Ns, 3), generator=gen, device=dev), dim=-1)
-    snrm[::11] = 0.0                                   # missing normals
-    sw = (torch.rand((Ns,), generator=gen, device=dev) > 0.1).float()
-    scene[::13] = 1e6
-    sw[::13] = 0.0
+        torch.randn((G, Ns, 3), generator=gen, device=dev), dim=-1)
+    snrm[:, ::11] = 0.0                                # missing normals
+    sw = (torch.rand((G, Ns), generator=gen, device=dev) > 0.1).float()
+    scene[:, ::13] = 1e6
+    sw[:, ::13] = 0.0
+    if G > 1:
+        sw[-1, 6:] = 0.0                               # a nearly empty object
+    else:
+        scene, snrm, sw = scene[0], snrm[0], sw[0]     # the [Ns, ...] form
     ref = _cloud(gen, (P, Nm, 3), dev, scale=0.1, centre=0.0)
     if ties:
         _ties(ref)
     rnrm = torch.nn.functional.normalize(
         torch.randn((P, Nm, 3), generator=gen, device=dev), dim=-1)
-    where = f"P={P} Ns={Ns} Nm={Nm}{' ties' if ties else ''} {plan or ''}"
+    where = f"P={P} G={G} Ns={Ns} Nm={Nm}{' ties' if ties else ''} {plan or ''}"
     run = lambda: knn_cuda.nn_gn_batched(scene, snrm, sw, ref, rnrm, **gates,
                                          **_plan_kw(plan))
-    plain = lambda: knn_cuda.nn_gn_plain(scene, snrm, sw, ref, rnrm, **gates)
+    plain_fn = lambda *a: knn_cuda.nn_gn_plain(*a, **gates)
+    if G > 1:
+        plain = lambda: in_slices(plain_fn, (scene, snrm, sw), (ref, rnrm),
+                                  plain_slices(P, G, Ns, Nm))
+    else:
+        plain = lambda: plain_fn(scene, snrm, sw, ref, rnrm)
     out, ref_out, again = run(), plain(), run()
     torch.cuda.synchronize()
     H, g, wsum, hits, wrr = out
@@ -403,31 +497,49 @@ def gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties=False, plan=None):
     for name, a, b in (("wsum", wsum, wsump), ("hits", hits, hitsp)):
         check(bool(((a - b).abs() <= 1e-5 * b.abs()).all()),
               f"K3 {name} disagrees at {where}")
+    if G > 1:
+        per = P // G
+        check(bool((wsum[-per:] <= 5.0).all()) and bool((wsum[:per] > 6.0).all()),
+              f"K3 groups leak at {where}: wsum of the empty object "
+              f"{wsum[-per:].max().item()}, of object 0 {wsum[:per].min().item()}")
+        alone_plan = plan or (knn_cuda.gn_plan(P, Ns, Nm) if hasattr(knn_cuda, "gn_plan")
+                              else None)
+        for o in range(G):
+            sl = slice(o * per, (o + 1) * per)
+            alone = knn_cuda.nn_gn_batched(scene[o], snrm[o], sw[o], ref[sl], rnrm[sl],
+                                           **gates, **_plan_kw(alone_plan))
+            check(all(torch.equal(a[sl], b) for a, b in zip(out, alone)),
+                  f"K3 group {o} alone differs from the grouped launch at {where}")
     print(f"K3 {where}: max|err| H {errs[0]:.3e} g {errs[1]:.3e} "
           f"wrr {errs[2]:.3e}, mean inlier mass {wsum.mean().item():.2f}, "
-          f"repeat bitwise equal", flush=True)
+          f"repeat bitwise equal"
+          f"{', each group alone bitwise equal' if G > 1 else ''}", flush=True)
     return run, plain, max(errs)
 
 
-def k3_phase(knn_cuda, dev) -> dict:
+def k3_phase(knn_cuda, dev, grouped: bool = True) -> dict:
     """K3 vs plain at the tracked scan, explorer, init scan and a ragged
-    shape, timed; then a tie case and a scene larger than one launch covers
-    at once, checked only. Returns the tracked-scan numbers."""
+    shape, and at the library sweep's with a scene per object, timed; then
+    tie cases and scenes larger than one launch covers at once, checked
+    only. Returns the tracked-scan numbers, every shape's under "shapes"."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(2)
     max_err, res = 0.0, {}
-    for P, Ns, Nm in GN_SHAPES:
-        run, plain, err = gn_case(knn_cuda, gen, dev, P, Ns, Nm)
+    for P, G, Ns, Nm in ([(P, 1, Ns, Nm) for P, Ns, Nm in GN_SHAPES]
+                         + (GN_GROUPED if grouped else [])):
+        run, plain, err = gn_case(knn_cuda, gen, dev, P, G, Ns, Nm)
         max_err = max(max_err, err)
         t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
-        b_ms, b_by = gn_bound(P, Ns, Nm)
-        report("K3", f"P={P} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'gn_plan', P, Ns, Nm)}", t,
-               b_ms, b_by, P * Ns * Nm)
-        res[(P, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
-    for P, Ns, Nm, ties in GN_CHECKS:
-        max_err = max(max_err, gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties)[2])
-    return dict(max_abs_err=max_err, **res[(512, 512, 256)])
+        b_ms, b_by = gn_bound(P, G, Ns, Nm)
+        report("K3", f"P={P} G={G} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'gn_plan', P, Ns, Nm)}",
+               t, b_ms, b_by, P * Ns * Nm)
+        res[(P, G, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    for P, G, Ns, Nm, ties in GN_CHECKS if grouped else GN_CHECKS[:2]:
+        max_err = max(max_err, gn_case(knn_cuda, gen, dev, P, G, Ns, Nm, ties)[2])
+    return dict(max_abs_err=max_err, **res[(512, 1, 512, 256)],
+                shapes={f"P={P} G={G} Ns={Ns} Nm={Nm}": v
+                        for (P, G, Ns, Nm), v in res.items()})
 
 
 def sweep_phase(knn_cuda, dev) -> None:
@@ -463,7 +575,7 @@ def sweep_phase(knn_cuda, dev) -> None:
                     if ss * q * W > Ns:
                         continue
                     plan = P_(q, groups, ss)
-                    run, _, _ = gn_case(knn_cuda, gen, dev, P, Ns, Nm, ties=True,
+                    run, _, _ = gn_case(knn_cuda, gen, dev, P, 1, Ns, Nm, ties=True,
                                         plan=plan)
                     timed(f"K3 P={P} Ns={Ns} Nm={Nm}", run, plan, chosen)
 
@@ -527,7 +639,7 @@ def timed_step(tracker, fr, pose_gt, dense, label: str, profiled: bool = False):
         pose = res.pose.cpu().numpy()
         ms = 1000.0 * (time.perf_counter() - t0)
     if profiled:
-        report_profile(prof, ms)
+        timed_step.last_profile = report_profile(prof, ms)
     check(pose.shape == (4, 4) and bool(np.isfinite(pose).all()),
           f"{label}: pose not finite")
     adds = 1000.0 * evaluation.add_s_error(pose, pose_gt, dense)
@@ -551,23 +663,28 @@ def counts(knn_cuda) -> dict:
 
 
 def check_shapes(knn_cuda, path: str) -> None:
-    """Every (P, Ns, Nm) launched since the last reset must be one that the
-    kernel phases held against the plain version (K1/K2: NN_SHAPES, K3:
-    GN_SHAPES); prints the launches by shape."""
+    """Every (P, B, Ns, Nm) launched since the last reset (B the query or
+    scene blocks) must be one that the kernel phases held against the plain
+    version (K1/K2: NN_SHAPES at B = 1 and B = P, and NN_GROUPED; K3:
+    GN_SHAPES at B = 1, and GN_GROUPED); prints the launches by shape."""
     seen = {"K1": knn_cuda.nn_gather_batched.shapes,
             "K2": knn_cuda.nn_batched.shapes,
             "K3": knn_cuda.nn_gn_batched.shapes}
-    print(f"{path} launches by (P, Ns, Nm): "
+    print(f"{path} launches by (P, blocks, Ns, Nm): "
           f"{ {k: dict(v) for k, v in seen.items() if v} }", flush=True)
+    nn_ok = {(P, B, Ns, Nm) for P, Ns, Nm in NN_SHAPES for B in (1, P)} | set(NN_GROUPED)
+    gn_ok = {(P, 1, Ns, Nm) for P, Ns, Nm in GN_SHAPES} | set(GN_GROUPED)
     for k, shapes in seen.items():
-        unchecked = set(shapes) - set(GN_SHAPES if k == "K3" else NN_SHAPES)
+        unchecked = set(shapes) - (gn_ok if k == "K3" else nn_ok)
         check(not unchecked, f"{path} launched {k} at {sorted(unchecked)}, "
               f"where no kernel phase checks it against its plain version")
 
 
-def track_phase(sc: Scene, knn_cuda) -> int:
+def track_phase(sc: Scene, knn_cuda) -> tuple[int, dict]:
     """Five tracked frames of the benchmark configuration from the ground
-    truth, then one profiled frame; returns the K1 launches of the five."""
+    truth, then one profiled frame; returns the K1 launches of the five and
+    the single frame's numbers (ms/frame, and the profiled frame's wall and
+    device ms and ATen calls) for the library phase to stand beside."""
     from icra20_hand_object_pose_tpu_torch.models import Estimator, Tracker
 
     tracker = Tracker(Estimator(sc.obj, sc.hand, sc.cfg), seed=0)
@@ -587,12 +704,13 @@ def track_phase(sc: Scene, knn_cuda) -> int:
           f"{frame_ms[0]:.2f} ms), launches in 5 frames {n}", flush=True)
     sc.step(tracker, "profiled track frame", profiled=True)
     check_shapes(knn_cuda, "track path")
-    return n["K1"]
+    return n["K1"], dict(timed_step.last_profile, frame_ms=steady)
 
 
-def report_profile(prof, wall_ms: float) -> None:
+def report_profile(prof, wall_ms: float) -> dict:
     """Device kernel time against the frame's wall time gives the card's
-    idle share; then the operators that take the most device time."""
+    idle share; then the operators that take the most device time. Returns
+    the wall and device ms and the ATen operator calls."""
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
@@ -605,6 +723,7 @@ def report_profile(prof, wall_ms: float) -> None:
           f"{n_ops} aten operator calls", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=15),
           flush=True)
+    return dict(wall_ms=wall_ms, device_ms=busy_ms, aten_calls=n_ops)
 
 
 def cold_start_phase(sc: Scene, knn_cuda) -> int:
@@ -877,6 +996,288 @@ def pixel_phase(sq: dict, knn_cuda, dev) -> None:
     check_shapes(knn_cuda, "pixel-mode path")
 
 
+class Library:
+    """BASELINE config 5 on the card: LIB objects at config 3's sizes (VGA,
+    2048 scene / 1024 model / 2048 render points, 512 particles x 10
+    iterations, T42 hand), object i built with ObjectModel(mesh, seed=i),
+    one splat-rendered frame per object with 1 mm noise. `shapes` cycles
+    over the library."""
+
+    def __init__(self, sc: Scene, dev, shapes):
+        import numpy as np
+
+        from icra20_hand_object_pose_tpu_torch.datasets import render_frame_fast
+        from icra20_hand_object_pose_tpu_torch.models import ObjectModel
+        from icra20_hand_object_pose_tpu_torch.utils import meshio
+
+        self.sc, self.dev = sc, dev
+        self.shapes = [shapes[i % len(shapes)] for i in range(LIB)]
+        self.meshes = [meshio.make_test_object(s) for s in self.shapes]
+        self.objs = [ObjectModel(m, model_points=1024, render_points=2048, seed=i,
+                                 device=dev) for i, m in enumerate(self.meshes)]
+        self.depths = np.stack([
+            render_frame_fast(m, sc.pose_gt, sc.hand, sc.hand_base, sc.hand_q,
+                              sc.cam, noise_sigma=0.001,
+                              rng=np.random.default_rng(i), device="cpu")
+            for i, m in enumerate(self.meshes)])
+        self.hand_bases = np.stack([sc.hand_base] * LIB)
+        self.hand_qs = np.stack([sc.hand_q] * LIB)
+        self.dense = [m.sample_surface(8192, seed=123)[0] for m in self.meshes]
+        self.limits = [0.1 * 1000.0 * o.diameter for o in self.objs]
+
+    def sweep(self, cfg=None, **kw):
+        from icra20_hand_object_pose_tpu_torch.parallel import LibrarySweep
+
+        return LibrarySweep(self.objs, self.sc.hand, cfg or self.sc.cfg, **kw)
+
+    def seeded(self, sweep):
+        """A state at the ground truth, as a healthy tracked frame leaves it."""
+        import torch
+
+        st = sweep.init_state()
+        gt = torch.as_tensor(self.sc.pose_gt, dtype=torch.float32, device=self.dev)
+        return st._replace(poses=gt.repeat(LIB, 1, 1), prev_poses=gt.repeat(LIB, 1, 1),
+                           initialized=torch.ones_like(st.initialized),
+                           fitness=torch.ones_like(st.fitness))
+
+    def step(self, sweep, st, label: str, profiled: bool = False, shared=False):
+        """One LibrarySweep.step on the static frames, timed to the poses on
+        the host (under torch.profiler when `profiled`); returns (state,
+        result, ms, ADD-S mm per object, the profile's numbers or None)."""
+        import contextlib
+
+        import numpy as np
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from icra20_hand_object_pose_tpu_torch import evaluation
+
+        args = ((self.depths[0], self.hand_bases[0], self.hand_qs[0]) if shared
+                else (self.depths, self.hand_bases, self.hand_qs))
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            st, res = sweep.step(st, *args)
+            poses = res.poses.cpu().numpy()
+            ms = 1000.0 * (time.perf_counter() - t0)
+        prof_numbers = report_profile(prof, ms) if profiled else None
+        check(poses.shape == (LIB, 4, 4) and bool(np.isfinite(poses).all()),
+              f"{label}: poses not finite")
+        adds = [1000.0 * evaluation.add_s_error(poses[o], self.sc.pose_gt, self.dense[o])
+                for o in range(LIB)]
+        print(f"{label}: {ms:.2f} ms, ADD-S mm {[round(a, 3) for a in adds]}, "
+              f"reinitialized {res.reinitialized.tolist()}, fitness "
+              f"{[round(f, 4) for f in res.fitness.tolist()]}", flush=True)
+        return st, res, ms, adds, prof_numbers
+
+
+def check_grouped(knn_cuda, kernel: str, path: str) -> None:
+    """Every launch of `kernel` since the last reset took one query (scene)
+    block per object or one for all: LIB or 1 blocks, never one launch per
+    object."""
+    shapes = {"K1": knn_cuda.nn_gather_batched, "K2": knn_cuda.nn_batched,
+              "K3": knn_cuda.nn_gn_batched}[kernel].shapes
+    check(bool(shapes), f"{path} never launched {kernel}")
+    bad = [s for s in shapes if s[0] % LIB or s[1] not in (1, LIB)]
+    check(not bad, f"{path} launched {kernel} per object, not per library: {bad}")
+
+
+def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
+    """Phase 10: LibrarySweep per scene at full width: an init step from
+    init_state(), 3 tracked steps, one tracked step under torch.profiler,
+    and the 8-frame `_scene_prep` loop alone under torch.profiler. Returns
+    the library (for the next phases) and K1's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from icra20_hand_object_pose_tpu_torch.models.estimator import _generator
+
+    lib = Library(sc, dev, ["box", "cylinder", "sphere", "ellipsoid"])
+    sweep = lib.sweep()
+    st = sweep.init_state()
+    thr = sc.cfg.tracker.fitness_reinit_threshold
+    reset_counts(knn_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    ms, adds, fitness = [], [], []
+    for i in range(4):
+        st, res, t, a, _ = lib.step(sweep, st, f"library step {i}")
+        ms.append(t)
+        adds.append(a)
+        reinit = res.reinitialized.tolist()
+        if i == 0:
+            check(all(reinit), f"library step 0 re-initialized {reinit}, not all")
+        else:
+            healthy = [f >= thr for f in fitness[-1]]
+            check(not any(r and h for r, h in zip(reinit, healthy)),
+                  f"library step {i} re-initialized a healthy object: {reinit}, "
+                  f"fitness before {fitness[-1]}")
+        fitness.append(res.fitness.tolist())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = counts(knn_cuda)
+    for o in range(LIB):
+        check(adds[0][o] < lib.limits[o] or adds[1][o] < lib.limits[o],
+              f"library init missed object {o} ({lib.shapes[o]}): ADD-S "
+              f"{adds[0][o]:.3f} / {adds[1][o]:.3f} mm, limit {lib.limits[o]:.3f} mm")
+        late = [adds[i][o] for i in (2, 3)]
+        check(max(late) < 5.0, f"library object {o} ({lib.shapes[o]}): tracked "
+              f"steps 2-3 ADD-S {late} >= 5 mm")
+    check(n["K1"] > 0 and n["K2"] == 0 and n["K3"] == 0,
+          f"library path launches {n}: K1 must carry it alone")
+    check_grouped(knn_cuda, "K1", "library path")
+    step_ms = sum(ms[2:]) / 2
+    print(f"LibrarySweep.step, {LIB} objects x 512 particles: init step "
+          f"{ms[0]:.2f} ms, tracked {step_ms:.2f} ms/step (steps 2-3; step 1 "
+          f"{ms[1]:.2f} ms) = {step_ms / LIB:.2f} ms per object-frame, "
+          f"{1000.0 * LIB / step_ms:.2f} object-frames/s, "
+          f"{1000.0 * LIB * 512 * 10 / step_ms:.0f} hypotheses/s; peak device "
+          f"memory {peak:.2f} GiB; launches in 4 steps {n}", flush=True)
+    _, _, _, _, prof = lib.step(sweep, st, "profiled library step", profiled=True)
+    if single is not None:
+        print(f"beside the same run's single frame: {step_ms:.2f} ms/step vs "
+              f"{single['frame_ms']:.2f} ms/frame ({step_ms / single['frame_ms']:.2f}x "
+              f"for {LIB}x the objects); profiled: {prof['aten_calls']} ATen calls vs "
+              f"{single['aten_calls']} ({prof['aten_calls'] / single['aten_calls']:.2f}x), "
+              f"device {prof['device_ms']:.3f} ms vs {single['device_ms']:.3f} ms "
+              f"({prof['device_ms'] / single['device_ms']:.2f}x)", flush=True)
+        check(prof["aten_calls"] < 4 * single["aten_calls"],
+              f"a sweep step issued {prof['aten_calls']} ATen calls, not far "
+              f"fewer than {LIB}x the single frame's {single['aten_calls']}")
+    # the per-frame scene prep loop of a tracked step, alone
+    est = sweep._est
+    gens = [_generator(o, dev) for o in range(LIB)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for o in range(LIB):
+                est._scene_prep(gens[o], est._tensor(lib.depths[o]),
+                                est._tensor(lib.hand_bases[o]),
+                                est._tensor(lib.hand_qs[o]), False)
+        torch.cuda.synchronize()
+        prep_ms = 1000.0 * (time.perf_counter() - t0)
+    prep_ops = sum(e.count for e in pr.key_averages() if e.key.startswith("aten::"))
+    print(f"scene prep loop alone ({LIB} frames, profiled): {prep_ms:.2f} ms, "
+          f"{prep_ops} ATen calls = {100.0 * prep_ms / prof['wall_ms']:.1f}% of the "
+          f"profiled step's wall time, {100.0 * prep_ops / prof['aten_calls']:.1f}% "
+          f"of its ATen calls", flush=True)
+    check_shapes(knn_cuda, "library path")
+    return dict(lib=lib, launches=n["K1"])
+
+
+def shared_phase(sc: Scene, knn_cuda, dev) -> None:
+    """Phase 11: the shared-scene library: LIB models of the box, one frame:
+    an init step and 2 tracked steps; object 0's init result bitwise the
+    per-scene path's fed LIB copies of the frame with the same seeds."""
+    import numpy as np
+    import torch
+
+    lib = Library(sc, dev, ["box"])
+    shared, per = lib.sweep(shared_scene=True), lib.sweep()
+    st = shared.init_state()
+    reset_counts(knn_cuda)
+    ms = []
+    for i in range(3):
+        st, res, t, adds, _ = lib.step(shared, st, f"shared-scene step {i}", shared=True)
+        ms.append(t)
+        check(all(res.reinitialized.tolist()) == (i == 0) and
+              any(res.reinitialized.tolist()) == (i == 0),
+              f"shared-scene step {i}: reinitialized {res.reinitialized.tolist()}")
+        if i > 0:
+            check(max(adds) < 5.0, f"shared-scene step {i}: ADD-S {adds} >= 5 mm")
+    check_grouped(knn_cuda, "K1", "shared-scene path")
+    print(f"shared scene: init step {ms[0]:.2f} ms, tracked {sum(ms[1:]) / 2:.2f} "
+          f"ms/step; launches in 3 steps {counts(knn_cuda)}", flush=True)
+    keys = list(range(40, 40 + LIB))
+    prev = np.stack([np.eye(4, dtype=np.float32)] * LIB)
+    out_sh = shared._run(keys, lib.depths[0], prev, lib.hand_bases[0],
+                         lib.hand_qs[0], "init")
+    out_per = per._run(keys, np.stack([lib.depths[0]] * LIB), prev, lib.hand_bases,
+                       lib.hand_qs, "init")
+    check(bool(torch.equal(out_sh.pose[0], out_per.pose[0])
+               and torch.equal(out_sh.fitness[0], out_per.fitness[0])
+               and torch.equal(out_sh.coverage[0], out_per.coverage[0])),
+          "shared-scene object 0 differs from the per-scene path on the same frame")
+    print("shared scene: object 0's init result bitwise equal to the per-scene "
+          "path fed 8 copies of the frame", flush=True)
+    check_shapes(knn_cuda, "shared-scene path")
+
+
+def library_kernels_phase(lb: dict, sc: Scene, knn_cuda, dev, work: str) -> dict:
+    """Phase 12: a tracked sweep step through K2 (nn_fn) and one through K3
+    (fused_gn), both from the ground truth; save_state / load_state with
+    the next step bitwise equal; `cli sweep` on two recorded sequences."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch import cli
+    from icra20_hand_object_pose_tpu_torch.datasets import (
+        SyntheticSequenceConfig, generate_sequence,
+    )
+    from icra20_hand_object_pose_tpu_torch.datasets.sequence import save_sequence
+    from icra20_hand_object_pose_tpu_torch.utils import meshio
+
+    lib = lb["lib"]
+    launches = {}
+    fused = dataclasses.replace(sc.cfg, icp=dataclasses.replace(sc.cfg.icp, fused_gn=True))
+    for kernel, sweep in (("K2", lib.sweep(nn_fn=knn_cuda.make_nn_fn())),
+                          ("K3", lib.sweep(cfg=fused))):
+        reset_counts(knn_cuda)
+        st, res, _, adds, _ = lib.step(sweep, lib.seeded(sweep), f"library step through {kernel}")
+        n = counts(knn_cuda)
+        check(not any(res.reinitialized.tolist()), f"{kernel} sweep step re-initialized")
+        check(max(adds) < 5.0, f"{kernel} sweep step: ADD-S {adds} >= 5 mm")
+        check(n[kernel] > 0 and (kernel != "K2" or n["K1"] == 0),
+              f"{kernel} sweep path launches {n}")
+        check_grouped(knn_cuda, kernel, f"{kernel} sweep path")
+        check_shapes(knn_cuda, f"{kernel} sweep path")
+        launches[kernel] = n[kernel]
+    # checkpoint: the K3 sweep's state after that step, into a second sweep
+    path = os.path.join(work, "sweep_state")
+    sweep.save_state(st, path)
+    other = lib.sweep(cfg=fused)
+    st2 = other.load_state(path)
+    check(st2.frame_idx == 1 and st2.key == st.key and st2.poses.device == st.poses.device,
+          f"loaded sweep state: frame {st2.frame_idx} on {st2.poses.device}")
+    _, res_a, _, _, _ = lib.step(sweep, st, "library step, uninterrupted")
+    _, res_b, _, _, _ = lib.step(other, st2, "library step, resumed")
+    check(all(torch.equal(a, b) for a, b in zip(res_a, res_b) if a is not None),
+          "the resumed sweep's step differs from the uninterrupted one")
+    print("sweep checkpoint: the resumed step bitwise equal to the uninterrupted one",
+          flush=True)
+    # the command line on two recorded sequences
+    shapes, n_frames = ["box", "cylinder"], 3
+    argv = ["sweep", "--out", os.path.join(work, "sweep"), "--device", str(dev)]
+    for s in shapes:
+        mesh = meshio.make_test_object(s)
+        frames = generate_sequence(
+            mesh, sc.hand, SyntheticSequenceConfig(n_frames=n_frames, camera=sc.cam),
+            device=dev)
+        save_sequence(frames, sc.cam, os.path.join(work, f"seq_{s}"))
+        meshio.save_obj(mesh, os.path.join(work, f"{s}.obj"))
+        argv += ["--data", os.path.join(work, f"seq_{s}"),
+                 "--object", os.path.join(work, f"{s}.obj")]
+    reset_counts(knn_cuda)
+    rc = cli.main(argv)
+    check(rc == 0, f"cli sweep returned {rc}")
+    recs = [json.loads(line) for line in open(os.path.join(work, "sweep", "metrics.jsonl"))]
+    check(len(recs) == n_frames and all(len(r["add_s"]) == 2 for r in recs),
+          f"cli sweep wrote {len(recs)} records")
+    check(recs[0]["reinitialized"] == [True, True], f"cli sweep frame 0: {recs[0]}")
+    for o in range(2):
+        for i in range(n_frames):
+            pose = np.loadtxt(os.path.join(work, "sweep", f"obj{o:02d}_poses", f"{i:06d}.txt"))
+            check(pose.shape == (4, 4) and bool(np.isfinite(pose).all()),
+                  f"cli sweep pose of object {o}, frame {i}")
+    print(f"cli sweep: {n_frames} frames x 2 objects, ms/frame "
+          f"{[round(r['ms'], 1) for r in recs]}, ADD-S mm "
+          f"{[[round(1000 * a, 2) for a in r['add_s']] for r in recs]}, "
+          f"launches {counts(knn_cuda)}", flush=True)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -906,26 +1307,40 @@ def main(argv: list[str]) -> int:
         sweep_phase(knn_cuda, dev)
         print(smi, flush=True)
         return 0
-    stats = {"K1": nn_phase(knn_cuda, dev, gather=True),
-             "K2": nn_phase(knn_cuda, dev, gather=False),
-             "K3": k3_phase(knn_cuda, dev)}
+    grouped = "--ungrouped" not in argv
+    stats = {"K1": nn_phase(knn_cuda, dev, gather=True, grouped=grouped),
+             "K2": nn_phase(knn_cuda, dev, gather=False, grouped=grouped),
+             "K3": k3_phase(knn_cuda, dev, grouped=grouped)}
     if "--kernels-only" in argv:
         print(smi, flush=True)
         return 0
     sc = Scene(dev)
-    launches = {"K1": track_phase(sc, knn_cuda),
+    if "--library-only" in argv:
+        with tempfile.TemporaryDirectory() as work:
+            lb = library_phase(sc, knn_cuda, dev, None)
+            shared_phase(sc, knn_cuda, dev)
+            library_kernels_phase(lb, sc, knn_cuda, dev, work)
+        print(smi, flush=True)
+        return 0
+    k1, single = track_phase(sc, knn_cuda)
+    launches = {"K1": k1,
                 "K3": cold_start_phase(sc, knn_cuda),
                 "K2": nn_fn_phase(sc, knn_cuda)}
     with tempfile.TemporaryDirectory() as work:
         sq = sequence_phase(knn_cuda, dev, work)
         checkpoint_phase(sq, knn_cuda, dev, work)
         pixel_phase(sq, knn_cuda, dev)
+        lb = library_phase(sc, knn_cuda, dev, single)
+        shared_phase(sc, knn_cuda, dev)
+        lib_launches = dict(library_kernels_phase(lb, sc, knn_cuda, dev, work),
+                            K1=lb["launches"])
 
     names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": names[k], "route": "cuda", "source": SOURCE[k],
         "replaces": REPLACES[k], "launches": launches[k],
+        "library_sweep_launches": lib_launches[k],
         **stats[k], "library_ms": None,
     } for k in ("K1", "K2", "K3")]}), flush=True)
     print(json.dumps({"ok": True, "device": {

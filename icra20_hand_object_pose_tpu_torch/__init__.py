@@ -3,11 +3,13 @@ icra20_hand_object_pose_tpu, the occlusion-aware 6-DoF pose tracker of
 objects grasped by adaptive hands.
 
 It mirrors the JAX package's layout and names (utils/, ops/, models/,
-datasets/, cli, parity, visualize, evaluation) and runs a frame
+datasets/, parallel/, cli, parity, visualize, evaluation) and runs a frame
 (`Tracker.step`, init and track programs) on a CUDA device, with the
 nearest-neighbour searches as hand-written CUDA kernels (ops/knn_cuda.py,
-csrc/). `python -m icra20_hand_object_pose_tpu_torch.cli demo|track|eval`
-drives a recorded sequence end to end. It imports torch, never jax.
+csrc/). `parallel.LibrarySweep` tracks a library of objects as one batched
+program. `python -m icra20_hand_object_pose_tpu_torch.cli
+demo|track|eval|sweep` drives recorded sequences end to end. It imports
+torch, never jax.
 """
 import torch
 

@@ -6,12 +6,17 @@ sequence and writes per-frame poses.
     python -m icra20_hand_object_pose_tpu_torch.cli demo  [--frames 8] [--out out/]
     python -m icra20_hand_object_pose_tpu_torch.cli eval  --poses out/metrics.jsonl \
         --data <seq_dir> --object mesh.obj [--ref-poses other/poses]
+    python -m icra20_hand_object_pose_tpu_torch.cli sweep \
+        --data <seq_dir_0> --object mesh_0.obj --data <seq_dir_1> --object mesh_1.obj \
+        [--config cfg.yaml] --out out_sweep/
 
 Outputs: per-frame 4x4 pose text files, a structured metrics.jsonl, and a
 summary table. `--device` picks where the models and frames live (default
 `cuda`; `cpu` for a machine without a card). `--profile DIR` wraps the run
-in a torch.profiler trace and writes it to DIR as a Chrome trace. The
-reference's `sweep` and `bench` subcommands are not ported yet.
+in a torch.profiler trace and writes it to DIR as a Chrome trace. `sweep`
+tracks a model library, one sequence per object, all objects stepped as one
+batched program (parallel.LibrarySweep). The reference's `bench` subcommand
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -212,6 +217,91 @@ def cmd_eval(args):
     return 0
 
 
+def cmd_sweep(args):
+    """Track a model library concurrently: one sequence per object, all
+    stepped as one batched program on one device (LibrarySweep). Writes
+    obj<i>_poses/<frame>.txt per object and one metrics.jsonl record per
+    frame."""
+    import torch
+
+    from .datasets.sequence import RecordedSequence
+    from .evaluation import JsonlLogger, add_s_error
+    from .models import ObjectModel
+    from .parallel import LibrarySweep
+
+    if len(args.data) != len(args.object):
+        print(f"error: {len(args.data)} sequences vs {len(args.object)} "
+              f"objects", file=sys.stderr)
+        return 2
+    seqs = [RecordedSequence(d) for d in args.data]
+    cams = {(s.camera.width, s.camera.height, s.camera.fx) for s in seqs}
+    if len(cams) != 1:
+        print("error: sequences must share camera intrinsics", file=sys.stderr)
+        return 2
+    if (args.shard and torch.device(args.device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "--shard over several devices is not ported yet: see ROADMAP.md, "
+            "'Still to port'")
+    n_frames = min(len(s) for s in seqs)
+    cfg = _load_cfg(args, camera=seqs[0].camera)
+    objs = [
+        ObjectModel.load(p, model_points=cfg.model_points, device=args.device)
+        for p in args.object
+    ]
+    sweep = LibrarySweep(objs, _make_hand(cfg, args.device), cfg)
+    st = sweep.init_state()
+    os.makedirs(args.out, exist_ok=True)
+    pose_dirs = []
+    for i in range(len(objs)):
+        d = os.path.join(args.out, f"obj{i:02d}_poses")
+        os.makedirs(d, exist_ok=True)
+        pose_dirs.append(d)
+    model_pts = [o.model_pts.cpu().numpy() for o in objs]
+    t_total = 0.0
+    with JsonlLogger(os.path.join(args.out, "metrics.jsonl")) as log:
+        for fi in range(n_frames):
+            frames = [s[fi] for s in seqs]
+            depths = np.stack([np.asarray(f.depth) for f in frames])
+            hbs = np.stack([
+                np.asarray(f.hand_base) if f.hand_base is not None
+                else np.eye(4, dtype=np.float32) for f in frames
+            ])
+            hq0 = next((f.hand_q for f in frames if f.hand_q is not None), None)
+            hqs = (
+                np.stack([
+                    np.asarray(f.hand_q) if f.hand_q is not None
+                    else np.zeros_like(np.asarray(hq0)) for f in frames
+                ]) if hq0 is not None else None
+            )
+            t0 = time.perf_counter()
+            st, res = sweep.step(st, depths, hbs, hqs)
+            poses = res.poses.cpu().numpy()
+            dt = time.perf_counter() - t0
+            t_total += dt
+            rec = dict(frame=fi, ms=dt * 1000.0,
+                       fitness=res.fitness.cpu().numpy().tolist(),
+                       reinitialized=res.reinitialized.cpu().numpy().tolist())
+            adds = []
+            for oi, f in enumerate(frames):
+                np.savetxt(os.path.join(pose_dirs[oi], f"{fi:06d}.txt"),
+                           poses[oi], fmt="%.9g")
+                if f.pose_gt is not None:
+                    adds.append(add_s_error(poses[oi], f.pose_gt, model_pts[oi]))
+            if adds:
+                rec["add_s"] = adds
+            log.log(**rec)
+            extra = (
+                " ADD-S[mm]=" + ",".join(f"{a*1000:.1f}" for a in adds)
+                if adds else ""
+            )
+            print(f"frame {fi}: {dt*1000:.0f}ms {len(objs)} objects{extra}",
+                  flush=True)
+    print(f"{n_frames} frames x {len(objs)} objects in {t_total:.2f}s "
+          f"({t_total/max(n_frames,1)*1000:.0f} ms/frame) -> {args.out}")
+    return 0
+
+
 def _profiled(fn, args, out_dir: str):
     """Run fn(args) under torch.profiler (host, and the card when one is
     in use) and write a Chrome trace into out_dir."""
@@ -276,6 +366,21 @@ def main(argv=None):
                         "parity report vs another implementation")
     device_arg(p)
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser(
+        "sweep", help="track a model library concurrently (one batched program)"
+    )
+    p.add_argument("--data", action="append", required=True,
+                   help="sequence directory (repeat, one per object)")
+    p.add_argument("--object", action="append", required=True,
+                   help="object mesh (repeat, paired with --data by order)")
+    p.add_argument("--config", default=None)
+    p.add_argument("--out", default="out_sweep")
+    p.add_argument("--shard", action="store_true",
+                   help="shard the object axis over all local devices (with "
+                        "one device: no effect; several are not ported yet)")
+    device_arg(p)
+    p.set_defaults(fn=cmd_sweep)
 
     args = ap.parse_args(argv)
     if args.profile:

@@ -4,9 +4,13 @@
 attributes (for example the JAX package's `ObjectModel` / `HandModel`
 fields read with `np.asarray`), so both implementations compute on the
 same samples; `reseeded_key` stands in for the key of a tracker checkpoint
-that the JAX package wrote. Nothing here imports jax.
+that the JAX package wrote, and `sweep_state_from_numpy` turns a library
+sweep's state (its fields as arrays, or its .npz) into the port's. Nothing
+here imports jax.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -74,3 +78,43 @@ def reseeded_key(seed: int, frame_idx: int) -> int:
     for _ in range(int(frame_idx)):
         key, _ = _split(key)
     return key
+
+
+def sweep_state_from_numpy(state, *, seed: int = 0,
+                           device: torch.device | str = "cuda"):
+    """The port's `parallel.SweepState` from a library sweep's state: a
+    mapping of field name to array, a NamedTuple of them (the JAX package's
+    `SweepState`), or the path of an .npz that either package's
+    `save_state` wrote. The tensors go to `device`. A `key` that is one
+    integer is kept; any other (threefry key data, a typed key, none) is
+    left unread and re-derived from `seed` and the frame index by
+    `reseeded_key`: the sweep's key advances once per frame, as a
+    Tracker's does."""
+    from .parallel.sharding import SweepState
+
+    if isinstance(state, (str, os.PathLike)):
+        state = np.load(state)
+    elif hasattr(state, "_asdict"):
+        state = state._asdict()
+    fields = {k: state[k] for k in state.keys() if state[k] is not None}
+
+    def tensor(name, dtype):
+        if name not in fields:
+            return None
+        return torch.tensor(np.asarray(fields[name]), dtype=dtype, device=device)
+
+    frame_idx = int(np.asarray(fields["frame_idx"]))
+    key = fields.get("key")
+    if isinstance(key, np.ndarray) and key.ndim == 0 and key.dtype.kind in "iu":
+        key = int(key)
+    if not isinstance(key, (int, np.integer)):
+        key = reseeded_key(seed, frame_idx)
+    f32, b = torch.float32, torch.bool
+    return SweepState(
+        poses=tensor("poses", f32), fitness=tensor("fitness", f32),
+        initialized=tensor("initialized", b), key=int(key), frame_idx=frame_idx,
+        coverage=tensor("coverage", f32), hyp_poses=tensor("hyp_poses", f32),
+        hyp_fitness=tensor("hyp_fitness", f32),
+        prev_poses=tensor("prev_poses", f32), vel_ok=tensor("vel_ok", b),
+        pose_tracked=tensor("pose_tracked", b),
+    )

@@ -22,9 +22,12 @@
 // product). K2 is the same kernel with the gather compiled out, so the two
 // cannot drift apart in arithmetic or tie order.
 //
-// The query is either shared by all particles (Pq == 1) or per particle
-// (Pq == P). Plain C interface, loaded with ctypes; the launch goes on the
-// caller's stream and the function returns its cudaError_t.
+// The query batch Pq is any divisor of P: particle p reads query block
+// p / (P / Pq). Pq == 1 is one query shared by all particles, Pq == P a query
+// per particle, and anything between is one query (scene) per group of
+// P / Pq consecutive particles: a library of objects searched in one launch.
+// Plain C interface, loaded with ctypes; the launch goes on the caller's
+// stream and the function returns its cudaError_t.
 
 #include "nn_search.cuh"
 
@@ -48,7 +51,7 @@ nn_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
           float* __restrict__ mnormal,          // [P, Ns, 3] (K1 only)
           float* __restrict__ d2_out,           // [P, Ns]
           int* __restrict__ idx_out,            // [P, Ns]
-          int shared_query, int Ns, int Nm, int S, int stage_normals) {
+          int per_query, int Ns, int Nm, int S, int stage_normals) {
   extern __shared__ float4 smem4[];
   const Staging st = staging(reinterpret_cast<float*>(smem4), Nm, S, stage_normals != 0);
 
@@ -60,7 +63,7 @@ nn_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
 
   Queries<Q> q;
   Best<Q> b;
-  load_queries<Q>(query + (shared_query ? 0 : (size_t)p * Ns * 3), s0, Ns, ln, q);
+  load_queries<Q>(query + (size_t)(p / per_query) * Ns * 3, s0, Ns, ln, q);
   sweep<Q>(ref, st.nrm != nullptr ? nrm : nullptr, Nm, ln, st, q, b);
   merge_groups<Q>(b, st.merge, ln);
   if (ln.g != 0) return;
@@ -88,28 +91,28 @@ nn_kernel(const float* __restrict__ query,      // [Pq, Ns, 3]
 template <int Q, int W, bool kGather>
 cudaError_t launch_q(int P, int Ns, int Nm, int S, cudaStream_t st,
                      const float* query, const float* ref_pts, const float* ref_nrm,
-                     float* matched, float* mnormal, float* d2, int* idx, int shared) {
+                     float* matched, float* mnormal, float* d2, int* idx, int per_query) {
   const dim3 grid((Ns + Q * W - 1) / (Q * W), P);
   const bool normals = kGather && Nm <= kStagedNormals;
   nn_kernel<Q, W, kGather><<<grid, W * S, smem_bytes(Nm, Q, W, S, normals), st>>>(
-      query, ref_pts, ref_nrm, matched, mnormal, d2, idx, shared, Ns, Nm, S, normals ? 1 : 0);
+      query, ref_pts, ref_nrm, matched, mnormal, d2, idx, per_query, Ns, Nm, S, normals ? 1 : 0);
   return cudaGetLastError();
 }
 
 template <int W, bool kGather>
 cudaError_t launch_w(int q, int P, int Ns, int Nm, int S, cudaStream_t st, const float* query,
                      const float* ref_pts, const float* ref_nrm, float* matched,
-                     float* mnormal, float* d2, int* idx, int shared) {
+                     float* mnormal, float* d2, int* idx, int per_query) {
   switch (q) {
     case 1:
       return launch_q<1, W, kGather>(P, Ns, Nm, S, st, query, ref_pts, ref_nrm, matched,
-                                     mnormal, d2, idx, shared);
+                                     mnormal, d2, idx, per_query);
     case 2:
       return launch_q<2, W, kGather>(P, Ns, Nm, S, st, query, ref_pts, ref_nrm, matched,
-                                     mnormal, d2, idx, shared);
+                                     mnormal, d2, idx, per_query);
     default:
       return launch_q<4, W, kGather>(P, Ns, Nm, S, st, query, ref_pts, ref_nrm, matched,
-                                     mnormal, d2, idx, shared);
+                                     mnormal, d2, idx, per_query);
   }
 }
 
@@ -117,22 +120,23 @@ template <bool kGather>
 int launch_nn(const float* query, const float* ref_pts, const float* ref_nrm,
               float* matched, float* mnormal, float* d2, int* idx, int P, int Pq,
               int Ns, int Nm, int q, int width, int S, void* stream) {
-  if (P <= 0 || P > 65535 || Ns <= 0 || Nm <= 0 || (Pq != 1 && Pq != P) || bad_plan(q, S) ||
+  if (P <= 0 || P > 65535 || Ns <= 0 || Nm <= 0 || Pq <= 0 || P % Pq != 0 || bad_plan(q, S) ||
       (width != 64 && width != kWidth)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  const int shared = Pq == 1 ? 1 : 0;
+  const int per_query = P / Pq;  // particles that share a query block
   return (int)(width == 64 ? launch_w<64, kGather>(q, P, Ns, Nm, S, st, query, ref_pts,
-                                                   ref_nrm, matched, mnormal, d2, idx, shared)
+                                                   ref_nrm, matched, mnormal, d2, idx, per_query)
                            : launch_w<kWidth, kGather>(q, P, Ns, Nm, S, st, query, ref_pts,
                                                        ref_nrm, matched, mnormal, d2, idx,
-                                                       shared));
+                                                       per_query));
 }
 
 }  // namespace
 
-// K1: search + gather, with `q` queries per thread, groups of `width`
+// K1: search + gather over Pq query blocks (Pq a divisor of P), with `q`
+// queries per thread, groups of `width`
 // threads (64 or 128) and the reference cloud split over `S` groups of a
 // block.
 extern "C" int nn_gather_launch(const float* query, const float* ref_pts,

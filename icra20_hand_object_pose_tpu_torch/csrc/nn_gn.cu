@@ -23,6 +23,12 @@
 //   - the search is nn_search.cuh's: each thread owns Q scene points, the
 //     block's S groups of 128 threads split the model cloud and merge in
 //     group order; the staged model tiles carry the normals too;
+//   - the scene comes in G blocks of Ns points (points, normals, weights),
+//     G a divisor of P: particle p is matched against scene p / (P / G). G ==
+//     1 is one scene for all particles; G > 1 is a library of objects, each
+//     with its own anchored scene and weights, in one launch. A particle
+//     reads and sums its own group's scene only, so its sums do not depend
+//     on what the other groups hold;
 //   - grid (scene_split, P): block t of particle p takes scene tile t (Q *
 //     128 points) of every chunk of scene_split * Q * 128 points, so a scene
 //     larger than the grid covers is walked in chunks, in order;
@@ -155,9 +161,9 @@ __device__ __forceinline__ void store_term(int k, float acc, int p, float* H, fl
 
 template <int Q>
 __global__ void __launch_bounds__(kMaxBlock)
-nn_gn_kernel(const float* __restrict__ scene,      // [Ns, 3] anchored
-             const float* __restrict__ scene_nrm,  // [Ns, 3]
-             const float* __restrict__ scene_w,    // [Ns]
+nn_gn_kernel(const float* __restrict__ scene_all,  // [G, Ns, 3] anchored
+             const float* __restrict__ nrm_all,    // [G, Ns, 3]
+             const float* __restrict__ w_all,      // [G, Ns]
              const float* __restrict__ ref,        // [P, Nm, 3] anchored
              const float* __restrict__ ref_nrm,    // [P, Nm, 3]
              float* __restrict__ H,                // [P, 6, 6]
@@ -167,8 +173,8 @@ nn_gn_kernel(const float* __restrict__ scene,      // [Ns, 3] anchored
              float* __restrict__ wrr,              // [P]
              float* __restrict__ partial,          // [P, scene_split, kTerms]
              unsigned int* __restrict__ arrived,   // [P], zero between launches
-             int Ns, int Nm, int S, int scene_split, float maxd2, float min_cos,
-             float tau2) {
+             int per_scene, int Ns, int Nm, int S, int scene_split, float maxd2,
+             float min_cos, float tau2) {
   extern __shared__ float4 smem4[];
   const Staging st = staging(reinterpret_cast<float*>(smem4), Nm, S, true);
   __shared__ float warp_sums[kMaxWarps][kTerms];
@@ -179,6 +185,10 @@ nn_gn_kernel(const float* __restrict__ scene,      // [Ns, 3] anchored
   const Lane ln = this_lane<kWidth>(S);
   const float* rp = ref + (size_t)p * Nm * 3;
   const float* rnp = ref_nrm + (size_t)p * Nm * 3;
+  const size_t grp = (size_t)(p / per_scene) * Ns;  // this particle's scene block
+  const float* scene = scene_all + grp * 3;
+  const float* scene_nrm = nrm_all + grp * 3;
+  const float* scene_w = w_all + grp;
 
   float v[kTerms];
 #pragma unroll
@@ -242,11 +252,11 @@ template <int Q>
 cudaError_t launch_q(int P, int S, int scene_split, cudaStream_t st, const float* scene,
                      const float* scene_nrm, const float* scene_w, const float* ref,
                      const float* ref_nrm, float* H, float* g, float* wsum, float* hits,
-                     float* wrr, float* partial, unsigned int* arrived, int Ns, int Nm,
-                     float maxd2, float min_cos, float tau2) {
+                     float* wrr, float* partial, unsigned int* arrived, int per_scene, int Ns,
+                     int Nm, float maxd2, float min_cos, float tau2) {
   nn_gn_kernel<Q><<<dim3(scene_split, P), kWidth * S, smem_bytes(Nm, Q, kWidth, S, true), st>>>(
-      scene, scene_nrm, scene_w, ref, ref_nrm, H, g, wsum, hits, wrr, partial, arrived, Ns,
-      Nm, S, scene_split, maxd2, min_cos, tau2);
+      scene, scene_nrm, scene_w, ref, ref_nrm, H, g, wsum, hits, wrr, partial, arrived,
+      per_scene, Ns, Nm, S, scene_split, maxd2, min_cos, tau2);
   return cudaGetLastError();
 }
 
@@ -254,32 +264,35 @@ cudaError_t launch_q(int P, int S, int scene_split, cudaStream_t st, const float
 
 // K3 with `q` scene points per thread, blocks of `S` groups of 128 threads
 // that split the model cloud, and the scene split over `scene_split` blocks
-// per particle. With scene_split > 1, `partial` holds P * scene_split * 30
-// floats and `arrived` P counters that are zero before the launch (the
-// kernel leaves them zero).
+// per particle. `scene`, `scene_nrm` and `scene_w` hold G scene blocks of Ns
+// points, G a divisor of P (see the design notes). With scene_split > 1,
+// `partial` holds P * scene_split * 30 floats and `arrived` P counters that
+// are zero before the launch (the kernel leaves them zero).
 extern "C" int nn_gn_launch(const float* scene, const float* scene_nrm,
                             const float* scene_w, const float* ref,
                             const float* ref_nrm, float* H, float* g, float* wsum,
                             float* hits, float* wrr, float* partial, unsigned int* arrived,
-                            int P, int Ns, int Nm, int q, int S, int scene_split,
+                            int P, int G, int Ns, int Nm, int q, int S, int scene_split,
                             float maxd2, float min_cos, float tau2, void* stream) {
-  if (P <= 0 || P > 65535 || Ns <= 0 || Nm <= 0 || bad_plan(q, S) || scene_split < 1 ||
+  if (P <= 0 || P > 65535 || Ns <= 0 || Nm <= 0 || G <= 0 || P % G != 0 || bad_plan(q, S) ||
+      scene_split < 1 ||
       (scene_split > 1 && (partial == nullptr || arrived == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
+  const int per_scene = P / G;  // particles that share a scene block
   switch (q) {
     case 1:
       return (int)launch_q<1>(P, S, scene_split, st, scene, scene_nrm, scene_w, ref, ref_nrm,
-                              H, g, wsum, hits, wrr, partial, arrived, Ns, Nm, maxd2, min_cos,
-                              tau2);
+                              H, g, wsum, hits, wrr, partial, arrived, per_scene, Ns, Nm, maxd2,
+                              min_cos, tau2);
     case 2:
       return (int)launch_q<2>(P, S, scene_split, st, scene, scene_nrm, scene_w, ref, ref_nrm,
-                              H, g, wsum, hits, wrr, partial, arrived, Ns, Nm, maxd2, min_cos,
-                              tau2);
+                              H, g, wsum, hits, wrr, partial, arrived, per_scene, Ns, Nm, maxd2,
+                              min_cos, tau2);
     default:
       return (int)launch_q<4>(P, S, scene_split, st, scene, scene_nrm, scene_w, ref, ref_nrm,
-                              H, g, wsum, hits, wrr, partial, arrived, Ns, Nm, maxd2, min_cos,
-                              tau2);
+                              H, g, wsum, hits, wrr, partial, arrived, per_scene, Ns, Nm, maxd2,
+                              min_cos, tau2);
   }
 }

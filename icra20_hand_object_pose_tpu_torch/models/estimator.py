@@ -21,6 +21,10 @@ refine and the explorer pulls go through kernel K3 (`gn_fn`). Unlike the
 reference, which builds the fused `gn_fn` only on a TPU, the port builds it
 on every device: on the CPU its wrapper runs the plain version, on the card
 the CUDA kernel (ops/knn_cuda.py).
+
+`_search` is written for a library of O objects (parallel/sharding.py
+steps one as a single program); `Estimator.estimate` and `Tracker.step`
+run it at O = 1.
 """
 from __future__ import annotations
 
@@ -223,35 +227,50 @@ class Estimator:
             weights = weights * (~is_hand)
         return scene, weights, hd_lo, hd_hi, hand_delta
 
+    @staticmethod
+    def _stack_preps(preps: list) -> tuple:
+        """`_scene_prep` results of O frames (or of the one frame that all
+        objects share) as one prep whose tensors carry a leading axis: the
+        form `_search` takes."""
+        scenes, weights, hd_lo, hd_hi, deltas = zip(*preps)
+        scene = preprocess.SceneCloud(*(torch.stack(f) for f in zip(*scenes)))
+        delta = None if deltas[0] is None else torch.stack(deltas)
+        return (scene, torch.stack(weights), torch.stack(hd_lo),
+                torch.stack(hd_hi), delta)
+
     def _self_occlusion_mask(self, gen, prev_poses, render_pts,
                              render_normals, render_w, rot_sigma, trans_sigma):
-        """[Nr] frame-constant render-sample visibility over the search
-        region: the hypothesis priors plus self_occ_union perturbed draws
-        each, splat at the low-res tier; a sample stays visible if it
-        passes the z-test under ANY region pose, or is near-grazing."""
+        """[O,Nr] frame-constant render-sample visibility over the search
+        region: the hypothesis priors ([O,Hy,4,4]) plus self_occ_union
+        perturbed draws each, splat at the low-res tier; a sample stays
+        visible if it passes the z-test under ANY region pose, or is
+        near-grazing."""
         sc = self.cfg.score
-        n_hyp = prev_poses.shape[0]
+        O, n_hyp = prev_poses.shape[:2]
         n_draw = sc.self_occ_union
         region = se3.perturb_pose(
-            gen, prev_poses.repeat(n_draw, 1, 1), rot_sigma, trans_sigma,
+            gen, prev_poses.repeat(1, n_draw, 1, 1), rot_sigma, trans_sigma,
             shape=(n_draw * n_hyp,),
         )
-        mask_poses = torch.cat([prev_poses, region], dim=0)
-        inc_pts = se3.transform_points(mask_poses, render_pts)     # [M,Nr,3]
-        inc_nrm = se3.rotate_vectors(mask_poses, render_normals)
+        mask_poses = torch.cat([prev_poses, region], dim=1)        # [O,M,4,4]
+        M, Nr = mask_poses.shape[1], render_pts.shape[1]
+        inc_pts = se3.transform_points(mask_poses, render_pts[:, None])  # [O,M,Nr,3]
+        inc_nrm = se3.rotate_vectors(mask_poses, render_normals[:, None])
         d_inc = render.splat_depth_batched(
-            inc_pts, render_w,
+            inc_pts.reshape(O * M, Nr, 3),
+            render_w[:, None].expand(O, M, Nr).reshape(O * M, Nr),
             fx=self.lo_fx, fy=self.lo_fy, cx=self.lo_cx, cy=self.lo_cy,
             height=self.lo_h, width=self.lo_w, radius=1,
-        )                                                          # [M,h,w]
+        )                                                          # [O*M,h,w]
         z = inc_pts[..., 2]
         zs = torch.where(z > 1e-6, z, 1.0)
         ui = torch.clamp(torch.round(
             inc_pts[..., 0] / zs * self.lo_fx + self.lo_cx).long(), 0, self.lo_w - 1)
         vi = torch.clamp(torch.round(
             inc_pts[..., 1] / zs * self.lo_fy + self.lo_cy).long(), 0, self.lo_h - 1)
-        d_at = torch.gather(d_inc.reshape(d_inc.shape[0], -1), 1,
-                            vi * self.lo_w + ui)                   # [M,Nr]
+        d_at = torch.gather(d_inc.reshape(O * M, -1), 1,
+                            (vi * self.lo_w + ui).reshape(O * M, Nr)
+                            ).reshape(O, M, Nr)
         # slope-scaled margin: the splat reads a steep surface closer
         ray = inc_pts / torch.clamp(
             torch.linalg.norm(inc_pts, dim=-1, keepdim=True), min=1e-9)
@@ -259,25 +278,26 @@ class Estimator:
         tanv = torch.sqrt(1.0 - cosv ** 2) / cosv
         margin = sc.self_occ_margin + (
             1.5 * (z / self.lo_fx) * torch.clamp(tanv, max=4.0))
-        vis_any = torch.any(d_at >= z - margin, dim=0)
-        grazing = torch.any(tanv > sc.self_occ_tan_max, dim=0)
+        vis_any = torch.any(d_at >= z - margin, dim=1)
+        grazing = torch.any(tanv > sc.self_occ_tan_max, dim=1)
         return vis_any | grazing
 
     def _aligned_candidates(self, gen, rotations, render_pts, render_normals,
                             render_w, kr, centroid, trans_sigma):
-        """Candidate poses from orientations: each translation puts the
-        model's predicted visible-surface centroid (camera +z view) on the
-        observed centroid, plus 0.3 * trans_sigma of noise. Draws: normals
-        of shape (n, 3)."""
-        n = rotations.shape[0]
+        """Candidate poses [O,n,4,4] from orientations [O,n,3,3]: each
+        translation puts the model's predicted visible-surface centroid
+        (camera +z view) on the observed centroid [O,3], plus 0.3 *
+        trans_sigma of noise. Draws: normals of shape (n, 3) per object."""
+        O, n = rotations.shape[:2]
         T0 = se3.make_pose(rotations, torch.zeros(
-            (n, 3), dtype=rotations.dtype, device=rotations.device))
-        pts_r = se3.transform_points(T0, render_pts[:kr])
-        nrm_r = se3.rotate_vectors(T0, render_normals[:kr])
-        vis_w = (nrm_r[..., 2] < 0.0) * render_w[:kr][None]
+            (O, n, 3), dtype=rotations.dtype, device=rotations.device))
+        pts_r = se3.transform_points(T0, render_pts[:, None, :kr])  # [O,n,kr,3]
+        nrm_r = se3.rotate_vectors(T0, render_normals[:, None, :kr])
+        vis_w = (nrm_r[..., 2] < 0.0) * render_w[:, None, :kr]
         wsum_r = torch.clamp(torch.sum(vis_w, -1, keepdim=True), min=1e-6)
-        m_vis = torch.sum(pts_r * vis_w[..., None], 1) / wsum_r
-        t = centroid[None] - m_vis + rng.normal(gen, (n, 3)) * (0.3 * trans_sigma)
+        m_vis = torch.sum(pts_r * vis_w[..., None], 2) / wsum_r
+        t = (centroid[:, None] - m_vis
+             + rng.normal(gen, (n, 3)) * (0.3 * trans_sigma))
         return se3.make_pose(rotations, t)
 
     def _prescreen(self, gen, scene, weights, hd_lo, obj_tensors, centroid, *,
@@ -286,7 +306,7 @@ class Estimator:
         (no ICP) over `prescreen` aligned super-Fibonacci candidates, the
         top prescreen_support re-ranked with scene support at 2x tau, then
         half the swarm from the best of those and half strided across the
-        whole grid regardless of score."""
+        whole grid regardless of score. Per object: [O,n_particles,4,4]."""
         cfg = self.cfg
         (model_pts, model_normals, render_pts, render_normals, render_w,
          _) = obj_tensors
@@ -294,7 +314,7 @@ class Estimator:
             gen, se3.super_fibonacci_rotations(prescreen, gen), render_pts,
             render_normals, render_w, kr, centroid, trans_sigma)
         cand_fit, _ = pso.score_particles(
-            cand, render_pts[:kr], render_normals[:kr], render_w[:kr],
+            cand, render_pts[:, :kr], render_normals[:, :kr], render_w[:, :kr],
             scene.depth, scene.valid, hd_lo,
             fx=self.lo_fx, fy=self.lo_fy, cx=self.lo_cx, cy=self.lo_cy,
             height=self.lo_h, width=self.lo_w,
@@ -306,46 +326,56 @@ class Estimator:
         n_top = n_particles // 2
         n_sup = min(max(cfg.tracker.prescreen_support, 2 * n_top), prescreen)
         if score_cfg.scene_cov_weight > 0.0 and cfg.tracker.prescreen_support > 0:
-            km_i = min(cfg.tracker.reinit_icp_model_subset, model_pts.shape[0])
-            ks_i = min(cfg.pso.icp_scene_subset, scene.points.shape[0])
-            sup_idx = pso.top_k(cand_fit, n_sup)
+            km_i = min(cfg.tracker.reinit_icp_model_subset, model_pts.shape[1])
+            ks_i = min(cfg.pso.icp_scene_subset, scene.points.shape[1])
+            sup_idx = pso.top_k(cand_fit, n_sup)                   # [O,n_sup]
             # 2x tau: the candidates are unrefined (~1 cm off)
             supp = icp.scene_support(
-                cand[sup_idx], scene.points[:ks_i], weights[:ks_i],
-                model_pts[:km_i], model_normals[:km_i],
+                pso.take(cand, sup_idx), scene.points[:, :ks_i], weights[:, :ks_i],
+                model_pts[:, :km_i], model_normals[:, :km_i],
                 tau=2.0 * score_cfg.scene_cov_tau,
                 nn_fn=self.nn_fn, corr_fn=self.corr_fn,
             )
-            corr_fit = cand_fit[sup_idx] + score_cfg.scene_cov_weight * (supp - 1.0)
-            top = sup_idx[pso.top_k(corr_fit, n_top)]
+            corr_fit = (pso.take(cand_fit, sup_idx)
+                        + score_cfg.scene_cov_weight * (supp - 1.0))
+            top = pso.take(sup_idx, pso.top_k(corr_fit, n_top))
         else:
             top = pso.top_k(cand_fit, n_top)
         stride_idx = np.linspace(0, prescreen - 1, n_particles - n_top
                                  ).round().astype(np.int64)
-        return torch.cat([cand[top],
-                          cand[torch.as_tensor(stride_idx, device=cand.device)]])
+        return torch.cat([
+            pso.take(cand, top),
+            cand[:, torch.as_tensor(stride_idx, device=cand.device)]], dim=1)
 
     def _search(
         self,
         gen,
         prep: tuple,
-        prev_pose: torch.Tensor,   # [4,4], or [Hy,4,4] hypothesis priors
-        obj_tensors: tuple,
+        prev_poses: torch.Tensor,  # [O,Hy,4,4] hypothesis priors per object
+        obj_tensors: tuple,        # each with a leading object axis
         *,
-        rot_sigma: float,
-        trans_sigma: float,
-        roi_radius: float,
+        rot_sigma,
+        trans_sigma,
+        roi_radius,
         n_particles: int,
         pso_iters: int,
         resample_after: int = 0,
         prescreen: int = 0,
         init_scoring: bool = False,
     ) -> FrameResult:
-        """Per-object search over a prepared scene: ROI crop, the swarm
-        (perturbations of the priors when tracking; the prescreen or the
-        aligned super-Fibonacci grid on a global init, `init_scoring`),
-        explorer seeds and the self-occlusion mask when tracking, the PSO
-        loop, the symmetry-branch snap and hypothesis extraction."""
+        """The search of O objects over prepared scenes, as one program:
+        ROI crop, the swarms (perturbations of the priors when tracking; the
+        prescreen or the aligned super-Fibonacci grid on a global init,
+        `init_scoring`), explorer seeds and the self-occlusion masks when
+        tracking, the PSO loop, the symmetry-branch snap and hypothesis
+        extraction.
+
+        `gen` is an rng.Stack of one source per object; `prep` a
+        `_stack_preps` result whose leading axis is O (a frame per object)
+        or 1 (one frame for all); `roi_radius` a float or one per object,
+        the sigmas floats or [O,1,1] tensors. Every field of the result
+        carries the object axis. A single frame is the O = 1 case
+        (`_frame_step`)."""
         cfg = self.cfg
         cam = cfg.camera
         scene, weights, hd_lo, hd_hi, hand_delta = prep
@@ -354,19 +384,23 @@ class Estimator:
         # pose's coverage there (tracking keeps the plain denominator)
         score_cfg = (dataclasses.replace(cfg.score, neutral_cov_exempt=True)
                      if init_scoring else cfg.score)
-        prev_poses = prev_pose if prev_pose.dim() == 3 else prev_pose[None]
-        n_hyp = prev_poses.shape[0]
+        O, n_hyp = prev_poses.shape[:2]
+        dev = prev_poses.device
         (model_pts, model_normals, render_pts, render_normals, render_w,
          symmetries) = obj_tensors
-        # workspace crop around the track, unless it would leave < 32 points
-        roi_center = prev_poses[0, :3, 3]
-        d2c = torch.sum((scene.points - roi_center) ** 2, dim=-1)
-        roi_w = weights * (d2c < roi_radius * roi_radius)
-        weights = torch.where(torch.sum(roi_w) >= 32.0, roi_w, weights)
+        # workspace crop around each track, unless it would leave < 32 points
+        roi_center = prev_poses[:, 0, :3, 3]
+        d2c = torch.sum((scene.points - roi_center[:, None]) ** 2, dim=-1)
+        roi_r2 = torch.as_tensor(np.square(np.asarray(roi_radius, np.float64)),
+                                 dtype=d2c.dtype, device=dev).reshape(-1, 1)
+        roi_w = weights * (d2c < roi_r2)
+        weights = torch.where((torch.sum(roi_w, dim=-1) >= 32.0)[:, None],
+                              roi_w, weights)                     # [O,Ns]
 
-        wsum = torch.clamp(torch.sum(weights), min=1e-9)
-        centroid = torch.sum(scene.points * weights[:, None], 0) / wsum
-        kr = min(cfg.pso.scan_render_subset, render_pts.shape[0])
+        wsum = torch.clamp(torch.sum(weights, dim=-1), min=1e-9)
+        centroid = (torch.sum(scene.points * weights[..., None], 1)
+                    / wsum[:, None])                               # [O,3]
+        kr = min(cfg.pso.scan_render_subset, render_pts.shape[1])
         render_vis = None
         explorer_seeds = None
         if init_scoring:
@@ -382,14 +416,14 @@ class Estimator:
                     trans_sigma)
         else:
             if n_hyp == 1:
-                priors = prev_poses[0]
+                priors = prev_poses
             else:
                 # the best basin keeps ~2/3 of the swarm, the backups share the rest
                 per = max(1, (n_particles // 3) // (n_hyp - 1))
                 counts = [n_particles - per * (n_hyp - 1)] + [per] * (n_hyp - 1)
                 prior_idx = torch.as_tensor(np.repeat(np.arange(n_hyp), counts),
-                                            device=prev_poses.device)
-                priors = prev_poses[prior_idx]
+                                            device=dev)
+                priors = prev_poses[:, prior_idx]
             poses0 = se3.perturb_pose(gen, priors, rot_sigma, trans_sigma,
                                       shape=(n_particles,))
             if cfg.score.self_occlusion:
@@ -405,7 +439,7 @@ class Estimator:
                     render_pts, render_normals, render_w, kr, centroid,
                     trans_sigma)
                 idx = np.linspace(0, n_particles - 1, n_explore).round().astype(np.int64)
-                explorer_seeds = global_init[torch.as_tensor(idx, device=centroid.device)]
+                explorer_seeds = global_init[:, torch.as_tensor(idx, device=dev)]
 
         pso_cfg = dataclasses.replace(cfg.pso, particles=n_particles,
                                       iters=pso_iters,
@@ -428,7 +462,7 @@ class Estimator:
             pso_cfg=pso_cfg, icp_cfg=cfg.icp, score_cfg=score_cfg,
             nn_fn=self.nn_fn, corr_fn=self.corr_fn, gn_fn=self.gn_fn,
             render_vis=render_vis,
-            prior_pose=prev_poses[0],
+            prior_pose=prev_poses[:, 0],
             prior_valid=not init_scoring,
             explorer_seeds=explorer_seeds,
             observed_neutral=scene.neutral,
@@ -438,31 +472,36 @@ class Estimator:
             ),
         )
         best_pose = result.best_pose
-        if symmetries.shape[0] > 1 and not init_scoring:
-            best_pose = pso.snap_to_branch(best_pose, prev_poses[0], symmetries,
+        if symmetries.shape[1] > 1 and not init_scoring:
+            best_pose = pso.snap_to_branch(best_pose, prev_poses[:, 0], symmetries,
                                            model_pts)
         hyp_poses, hyp_fitness = pso.diverse_hypotheses(
             result.cand_poses, result.cand_fitness, n_hyp,
             first_pose=best_pose, first_fitness=result.best_fitness,
         )
+        if hand_delta is None:
+            hand_delta = torch.eye(4, dtype=best_pose.dtype, device=dev)[None]
         return FrameResult(
             pose=best_pose,
             fitness=result.best_fitness,
             coverage=result.best_coverage,
             fitness_trace=result.fitness_trace,
-            n_scene=torch.sum(weights),
+            n_scene=torch.sum(weights, dim=-1),
             hyp_poses=hyp_poses,
             hyp_fitness=hyp_fitness,
-            hand_delta=(torch.eye(4, dtype=best_pose.dtype, device=best_pose.device)
-                        if hand_delta is None else hand_delta),
+            hand_delta=hand_delta.expand(O, 4, 4),
         )
 
     def _frame_step(self, gen, depth_m, prev_pose, hand_base, hand_q,
                     obj_tensors, *, init_scoring=False, **search) -> FrameResult:
-        """One frame: scene prep, then the per-object search."""
-        prep = self._scene_prep(gen, depth_m, hand_base, hand_q, init_scoring)
-        return self._search(gen, prep, prev_pose, obj_tensors,
-                            init_scoring=init_scoring, **search)
+        """One frame: scene prep, then the search as a library of one."""
+        prep = self._stack_preps(
+            [self._scene_prep(gen, depth_m, hand_base, hand_q, init_scoring)])
+        prev_poses = prev_pose if prev_pose.dim() == 3 else prev_pose[None]
+        out = self._search(rng.Stack([gen]), prep, prev_poses[None],
+                           tuple(t[None] for t in obj_tensors),
+                           init_scoring=init_scoring, **search)
+        return FrameResult(*(t[0] for t in out))
 
     # -- public API ----------------------------------------------------------
 
@@ -555,10 +594,11 @@ class TrackResult(NamedTuple):
     hyp_fitness: torch.Tensor | None = None
 
 
-def _split(key: int) -> tuple[int, int]:
-    """(next key, frame seed) from a key, like jax.random.split."""
-    a, b = np.random.SeedSequence(int(key)).generate_state(2, np.uint64)
-    return int(a) >> 1, int(b) >> 1
+def _split(key: int, n: int = 2) -> tuple[int, ...]:
+    """n keys from a key, like jax.random.split: (next key, frame seed) at
+    n = 2."""
+    words = np.random.SeedSequence(int(key)).generate_state(n, np.uint64)
+    return tuple(int(w) >> 1 for w in words)
 
 
 class Tracker:

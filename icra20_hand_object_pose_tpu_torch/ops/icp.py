@@ -109,6 +109,14 @@ def solve_gn_step(
     return xi, rmse
 
 
+def _lift(poses: torch.Tensor, *tensors: torch.Tensor):
+    """The single-object arguments of icp_batched / scene_support with a
+    leading object axis of length 1: (lifted?, poses, tensors...)."""
+    if poses.dim() == 4:
+        return (True, poses) + tensors
+    return (False, poses[None]) + tuple(t[None] for t in tensors)
+
+
 def icp_batched(
     poses0: torch.Tensor,         # [P,4,4]
     scene_pts: torch.Tensor,      # [Ns,3] shared observations
@@ -133,22 +141,60 @@ def icp_batched(
     one [P,Ns,Nm] correspondence search plus `gn_reps` GN solves on the same
     matched pairs (re-posed by each increment).
 
-    Correspondences, first given wins:
-    - corr_fn(scene [Ns,3], posed [P,Nm,3], posed_normals [P,Nm,3]) ->
-      (matched, mnormal, d2, idx);
-    - nn_fn(scene [Ns,3], posed [P,Nm,3]) -> (idx, d2), then a gather;
+    A library of O objects runs as one program: poses0 [O,P,4,4], scene
+    points and normals [O,Ns,3] (or [1,Ns,3]: one scene shared by all),
+    scene_weights [O,Ns], model clouds [O,Nm,3]. The anchor, the weight sum
+    and the freeze of a particle are per object; the outputs keep [O,P].
+
+    Correspondences, first given wins; each callback is handed the library
+    form (O = 1 for a single object) and returns tensors on [O,P] axes:
+    - corr_fn(scene [1|O,Ns,3], posed [O,P,Nm,3], posed_normals
+      [O,P,Nm,3]) -> (matched, mnormal, d2, idx);
+    - nn_fn(scene [1|O,Ns,3], posed [O,P,Nm,3]) -> (idx, d2), then a gather;
     - default: the dense oracle.
-    gn_fn(scene_c, scene_normals, scene_w, posed_c [P,Nm,3], posed_normals)
-    -> (H, g, wsum, hits, wrr) replaces all of them with one fused call per
-    iteration; it takes gn_reps=1 only, and its baked gates must agree with
-    this call's. support_tau > 0 reports IcpStats.support from the last
-    search."""
-    P = poses0.shape[0]
+    gn_fn(scene_c [O,Ns,3], scene_normals, scene_w [O,Ns], posed_c
+    [O,P,Nm,3], posed_normals) -> (H, g, wsum, hits, wrr) replaces all of
+    them with one fused call per iteration; it takes gn_reps=1 only, and
+    its baked gates must agree with this call's. support_tau > 0 reports
+    IcpStats.support from the last search."""
+    lifted, poses0, scene_pts, scene_normals, scene_weights, model_pts, model_normals = _lift(
+        poses0, scene_pts, scene_normals, scene_weights, model_pts, model_normals)
+    poses, stats = _icp_objects(
+        poses0, scene_pts, scene_normals, scene_weights, model_pts, model_normals,
+        iters=iters, max_corresp_dist=max_corresp_dist,
+        normal_angle_max_deg=normal_angle_max_deg, damping=damping,
+        step_scale=step_scale, converge_tol=converge_tol, gn_reps=gn_reps,
+        nn_fn=nn_fn, corr_fn=corr_fn, gn_fn=gn_fn, support_tau=support_tau)
+    if lifted:
+        return poses, stats
+    return poses[0], IcpStats(*(a[0] for a in stats))
+
+
+def _search(scene_pts, posed, mnorm_all, nn_fn, corr_fn):
+    """(matched, mnormal, d2) of scene [1|O,Ns,3] in posed [O,P,Nm,3]."""
+    if corr_fn is not None:
+        matched, mnorm, d2, _ = corr_fn(scene_pts, posed, mnorm_all)
+        return matched, mnorm, d2
+    if nn_fn is not None:
+        idx, d2 = nn_fn(scene_pts, posed)                         # [O,P,Ns]
+    else:
+        idx, d2 = knn.nn(scene_pts[:, None], posed)
+    sel = idx.to(torch.int64)[..., None].expand(idx.shape + (3,))
+    return torch.gather(posed, 2, sel), torch.gather(mnorm_all, 2, sel), d2
+
+
+def _icp_objects(poses0, scene_pts, scene_normals, scene_weights, model_pts,
+                 model_normals, *, iters, max_corresp_dist,
+                 normal_angle_max_deg, damping, step_scale, converge_tol,
+                 gn_reps, nn_fn, corr_fn, gn_fn, support_tau):
+    """icp_batched on its library form: poses0 [O,P,4,4], scene [1|O,Ns,..],
+    scene_weights [O,Ns], model [O,Nm,3]."""
     min_cos = math.cos(math.radians(normal_angle_max_deg))
-    wsum = torch.clamp(torch.sum(scene_weights), min=1e-9)
-    anchor = torch.sum(scene_pts * scene_weights[:, None], dim=0) / wsum
+    wsum = torch.clamp(torch.sum(scene_weights, dim=-1), min=1e-9)       # [O]
+    anchor = torch.sum(scene_pts * scene_weights[..., None], dim=1) / wsum[:, None]
+    scene_c = scene_pts - anchor[:, None]                               # [O,Ns,3]
     if gn_fn is not None:
-        return _icp_fused(poses0, scene_pts - anchor, scene_normals,
+        return _icp_fused(poses0, scene_c, scene_normals,
                           scene_weights, model_pts, model_normals, anchor, wsum,
                           iters=iters, max_corresp_dist=max_corresp_dist,
                           min_cos=min_cos, damping=damping,
@@ -159,38 +205,28 @@ def icp_batched(
         if support_tau <= 0:
             return torch.zeros(d2.shape[:-1], dtype=d2.dtype, device=d2.device)
         hit = (d2 < support_tau * support_tau).to(d2.dtype)
-        return torch.sum(hit * scene_weights[None], dim=-1) / wsum
+        return torch.sum(hit * scene_weights[:, None], dim=-1) / wsum[:, None]
 
-    scene_c = scene_pts - anchor
     poses = poses0
-    frozen = torch.zeros((P,), dtype=torch.bool, device=poses0.device)
+    frozen = torch.zeros(poses0.shape[:2], dtype=torch.bool, device=poses0.device)
     rmse = inliers = support = None
     for _ in range(iters):
-        posed = se3.transform_points(poses, model_pts)            # [P,Nm,3]
-        mnorm_all = se3.rotate_vectors(poses, model_normals)
-        if corr_fn is not None:
-            matched, mnorm, d2, _ = corr_fn(scene_pts, posed, mnorm_all)
-        else:
-            if nn_fn is not None:
-                idx, d2 = nn_fn(scene_pts, posed)                 # [P,Ns]
-            else:
-                idx, d2 = knn.nn(scene_pts, posed)
-            sel = idx.to(torch.int64)[..., None].expand(-1, -1, 3)
-            matched = torch.gather(posed, 1, sel)
-            mnorm = torch.gather(mnorm_all, 1, sel)
+        posed = se3.transform_points(poses, model_pts[:, None])   # [O,P,Nm,3]
+        mnorm_all = se3.rotate_vectors(poses, model_normals[:, None])
+        matched, mnorm, d2 = _search(scene_pts, posed, mnorm_all, nn_fn, corr_fn)
         w = correspondence_weights(
-            d2, scene_normals[None], mnorm, scene_weights[None],
+            d2, scene_normals[:, None], mnorm, scene_weights[:, None],
             max_corresp_dist, min_cos,
-        )                                                         # [P,Ns]
-        m_c = matched - anchor
+        )                                                         # [O,P,Ns]
+        m_c = matched - anchor[:, None, None]
         nrm = mnorm
         for rep in range(gn_reps):
-            xi, rmse = solve_gn_step(scene_c[None], m_c, nrm, w, damping)
+            xi, rmse = solve_gn_step(scene_c[:, None], m_c, nrm, w, damping)
             xi = xi * step_scale
             step = torch.sum(xi * xi, dim=-1)
             frozen = frozen | (step < converge_tol * converge_tol)
-            xi = torch.where(frozen[:, None], 0.0, xi)
-            poses = se3.apply_twist_about(xi, poses, anchor)
+            xi = torch.where(frozen[..., None], 0.0, xi)
+            poses = se3.apply_twist_about(xi, poses, anchor[:, None])
             if rep + 1 < gn_reps:
                 E = se3.se3_exp(xi)
                 m_c = se3.transform_points(E, m_c)
@@ -205,8 +241,9 @@ def _icp_fused(poses0, scene_c, scene_normals, scene_weights, model_pts,
                model_normals, anchor, wsum, *, iters, max_corresp_dist,
                min_cos, damping, step_scale, converge_tol, gn_reps, gn_fn,
                support_tau) -> tuple[torch.Tensor, IcpStats]:
-    """icp_batched's gn_fn path: one fused search + normal-equation build
-    and one solve per iteration (the matched points never leave gn_fn)."""
+    """_icp_objects' gn_fn path: one fused search + normal-equation build
+    and one solve per iteration (the matched points never leave gn_fn).
+    scene_c [O,Ns,3] is anchored per object (anchor [O,3], wsum [O])."""
     if gn_reps != 1:
         raise ValueError(
             "gn_fn path runs exactly one linearization per search; "
@@ -222,27 +259,29 @@ def _icp_fused(poses0, scene_c, scene_normals, scene_weights, model_pts,
                     f"gn_fn was built with {name}={b} but icp_batched was "
                     f"called with a value implying {name}={w}; construct "
                     "make_gn_fn with matching gates.")
+    O = poses0.shape[0]
+    scene_normals = scene_normals.expand((O,) + tuple(scene_normals.shape[1:]))
     poses = poses0
-    frozen = torch.zeros((poses0.shape[0],), dtype=torch.bool,
+    frozen = torch.zeros(poses0.shape[:2], dtype=torch.bool,
                          device=poses0.device)
     rmse = inliers = support = None
     eye = torch.eye(6, dtype=poses0.dtype, device=poses0.device)
     for _ in range(iters):
-        posed_c = se3.transform_points(poses, model_pts) - anchor
-        mnorm = se3.rotate_vectors(poses, model_normals)
+        posed_c = se3.transform_points(poses, model_pts[:, None]) - anchor[:, None, None]
+        mnorm = se3.rotate_vectors(poses, model_normals[:, None])
         H, g, wsum_w, hits, wrr = gn_fn(scene_c, scene_normals, scene_weights,
                                         posed_c, mnorm)
         tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
         lam = damping * (tr / 6.0 + 1e-12)
-        xi = cholesky_solve6(H + lam[:, None, None] * eye, g) * step_scale
-        xi = torch.where((wsum_w > 6.0)[:, None], xi, 0.0)
+        xi = cholesky_solve6(H + lam[..., None, None] * eye, g) * step_scale
+        xi = torch.where((wsum_w > 6.0)[..., None], xi, 0.0)
         step = torch.sum(xi * xi, dim=-1)
         frozen = frozen | (step < converge_tol * converge_tol)
-        xi = torch.where(frozen[:, None], 0.0, xi)
-        poses = se3.apply_twist_about(xi, poses, anchor)
+        xi = torch.where(frozen[..., None], 0.0, xi)
+        poses = se3.apply_twist_about(xi, poses, anchor[:, None])
         rmse = torch.sqrt(wrr / torch.clamp(wsum_w, min=1e-9))
         inliers = wsum_w
-        support = hits / wsum
+        support = hits / wsum[:, None]
     return poses, IcpStats(rmse=rmse, inliers=inliers, converged=frozen,
                            support=support)
 
@@ -259,18 +298,22 @@ def scene_support(
     corr_fn: Callable | None = None,
 ) -> torch.Tensor:
     """Observation-side support: weighted fraction of scene points within
-    `tau` of the posed model cloud, per pose ([P])."""
-    posed = se3.transform_points(poses, model_pts)
+    `tau` of the posed model cloud, per pose ([P]). For a library: poses
+    [O,P,4,4], scene [1|O,Ns,3], weights [O,Ns], model [O,Nm,3] -> [O,P]."""
+    lifted, poses, scene_pts, scene_weights, model_pts, model_normals = _lift(
+        poses, scene_pts, scene_weights, model_pts, model_normals)
+    posed = se3.transform_points(poses, model_pts[:, None])
     if corr_fn is not None:
         _, _, d2, _ = corr_fn(scene_pts, posed,
-                              se3.rotate_vectors(poses, model_normals))
+                              se3.rotate_vectors(poses, model_normals[:, None]))
     elif nn_fn is not None:
         _, d2 = nn_fn(scene_pts, posed)
     else:
-        _, d2 = knn.nn(scene_pts, posed)
+        _, d2 = knn.nn(scene_pts[:, None], posed)
     hit = (d2 < tau * tau).to(d2.dtype)
-    wsum = torch.clamp(torch.sum(scene_weights), min=1e-9)
-    return torch.sum(hit * scene_weights[None], dim=-1) / wsum
+    wsum = torch.clamp(torch.sum(scene_weights, dim=-1), min=1e-9)
+    out = torch.sum(hit * scene_weights[:, None], dim=-1) / wsum[:, None]
+    return out if lifted else out[0]
 
 
 def icp(

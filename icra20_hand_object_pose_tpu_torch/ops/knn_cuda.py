@@ -21,10 +21,16 @@ Two versions of each function live here:
     `build/` directory at first use and bound with ctypes. They keep the
     distance matrix out of device memory (see the source notes).
 
+The query of K1/K2 and the scene of K3 come in B blocks, B any divisor of
+the particle count P: particle p takes block p // (P // B). B = 1 is one
+scene for every particle, B = P one per particle, and anything between one
+scene per group of particles: a library of O objects with P/O particles
+each, searched in one launch (parallel/sharding.py).
+
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
 other. `<wrapper>.launches` counts kernel launches and `<wrapper>.shapes`
-counts them by (P, Ns, Nm).
+counts them by (P, B, Ns, Nm).
 """
 from __future__ import annotations
 
@@ -83,23 +89,32 @@ class Plan(NamedTuple):
     width: int = WIDTH  # threads per group (K1/K2: 64 or 128; K3: 128)
 
 
+def _grouped(t: torch.Tensor, B: int) -> torch.Tensor:
+    """[P, ...] -> [B, P // B, ...]: the particles beside their block."""
+    return t.reshape((B, t.shape[0] // B) + tuple(t.shape[1:]))
+
+
 def nn_plain(query: torch.Tensor, ref: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K2: query [1|P,Ns,3], ref [P,Nm,3] -> (idx [P,Ns]
-    int32, d2 [P,Ns]). The same operations as the kernels (r - q, then
-    dx*dx + dy*dy + dz*dz in FP32), so d2 agrees bitwise; `argmin` keeps the
-    first minimal index."""
-    dx = ref[:, None, :, 0] - query[:, :, None, 0]
-    dy = ref[:, None, :, 1] - query[:, :, None, 1]
-    dz = ref[:, None, :, 2] - query[:, :, None, 2]
-    d2_all = dx * dx + dy * dy + dz * dz                      # [P,Ns,Nm]
+    """Plain PyTorch K2: query [Pq,Ns,3] (Pq a divisor of P), ref [P,Nm,3]
+    -> (idx [P,Ns] int32, d2 [P,Ns]). The same operations as the kernels
+    (r - q, then dx*dx + dy*dy + dz*dz in FP32), so d2 agrees bitwise;
+    `argmin` keeps the first minimal index."""
+    P, Nm = ref.shape[:2]
+    Pq, Ns = query.shape[:2]
+    r = _grouped(ref, Pq)[:, :, None]                         # [Pq,P/Pq,1,Nm,3]
+    q = query[:, None, :, None]                               # [Pq,1,Ns,1,3]
+    dx = r[..., 0] - q[..., 0]
+    dy = r[..., 1] - q[..., 1]
+    dz = r[..., 2] - q[..., 2]
+    d2_all = (dx * dx + dy * dy + dz * dz).reshape(P, Ns, Nm)
     idx = torch.argmin(d2_all, dim=-1)                        # [P,Ns]
     d2 = torch.gather(d2_all, -1, idx[..., None])[..., 0]
     return idx.to(torch.int32), d2
 
 
 def nn_gather_plain(
-    query: torch.Tensor,        # [1|P, Ns, 3]
+    query: torch.Tensor,        # [Pq, Ns, 3], Pq a divisor of P
     ref_pts: torch.Tensor,      # [P, Nm, 3]
     ref_normals: torch.Tensor,  # [P, Nm, 3]
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -113,9 +128,9 @@ def nn_gather_plain(
 
 
 def nn_gn_plain(
-    scene_c: torch.Tensor,        # [Ns,3] anchored scene points
-    scene_normals: torch.Tensor,  # [Ns,3] (zeros allowed)
-    scene_w: torch.Tensor,        # [Ns] weights (0 = padding)
+    scene_c: torch.Tensor,        # [Ns,3] or [G,Ns,3] anchored scene points
+    scene_normals: torch.Tensor,  # [Ns,3] or [G,Ns,3] (zeros allowed)
+    scene_w: torch.Tensor,        # [Ns] or [G,Ns] weights (0 = padding)
     ref_c: torch.Tensor,          # [P,Nm,3] anchored posed model points
     ref_normals: torch.Tensor,    # [P,Nm,3] posed model normals
     *,
@@ -125,16 +140,25 @@ def nn_gn_plain(
 ) -> tuple[torch.Tensor, ...]:
     """Plain PyTorch K3: (H [P,6,6], g [P,6], wsum [P], hits [P], wrr [P]).
     The K1 plain version, then `icp.correspondence_weights`, then the
-    einsum build of the point-to-plane normal equations."""
-    m, n, d2, _ = nn_gather_plain(scene_c[None], ref_c, ref_normals)
-    w = icp.correspondence_weights(d2, scene_normals[None], n, scene_w[None],
-                                   math.sqrt(maxd2), min_cos)   # [P,Ns]
-    r = torch.sum(n * (scene_c[None] - m), dim=-1)
+    einsum build of the point-to-plane normal equations. With G scenes,
+    particle p is matched against scene p // (P // G)."""
+    if scene_c.dim() == 2:
+        scene_c, scene_normals, scene_w = scene_c[None], scene_normals[None], scene_w[None]
+    G, P = scene_c.shape[0], ref_c.shape[0]
+    m, n, d2, _ = nn_gather_plain(scene_c, ref_c, ref_normals)
+
+    def per_particle(t):                                       # [G,Ns,..] -> [P,Ns,..]
+        return t[:, None].expand((G, P // G) + tuple(t.shape[1:])).reshape(
+            (P,) + tuple(t.shape[1:]))
+
+    sc, sn, sw = map(per_particle, (scene_c, scene_normals, scene_w))
+    w = icp.correspondence_weights(d2, sn, n, sw, math.sqrt(maxd2), min_cos)  # [P,Ns]
+    r = torch.sum(n * (sc - m), dim=-1)
     J = torch.cat([torch.linalg.cross(m, n), n], dim=-1)       # [P,Ns,6]
     wJ = J * w[..., None]
     H = torch.einsum("pni,pnj->pij", wJ, J)
     g = torch.einsum("pni,pn->pi", wJ, r)
-    hits = torch.sum(scene_w[None] * (d2 < tau2), dim=-1)
+    hits = torch.sum(sw * (d2 < tau2), dim=-1)
     return H, g, torch.sum(w, dim=-1), hits, torch.sum(w * r * r, dim=-1)
 
 
@@ -233,7 +257,7 @@ def build() -> tuple[ctypes.CDLL, str]:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nn_gather_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
     lib.nn_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-    lib.nn_gn_launch.argtypes = [ptr] * 12 + [i32] * 6 + [f32] * 3 + [ptr]
+    lib.nn_gn_launch.argtypes = [ptr] * 12 + [i32] * 7 + [f32] * 3 + [ptr]
     for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch):
         fn.restype = i32
     return lib, log
@@ -305,13 +329,13 @@ def _batched_shapes(query: torch.Tensor, ref: torch.Tensor):
         raise ValueError("query and ref must be [B, N, 3]")
     Pq, Ns, _ = query.shape
     P, Nm, _ = ref.shape
-    if Pq not in (1, P):
-        raise ValueError(f"query batch {Pq} incompatible with ref batch {P}")
+    if Pq < 1 or P % Pq:
+        raise ValueError(f"query batch {Pq} does not divide ref batch {P}")
     return Pq, Ns, P, Nm
 
 
 def nn_gather_batched(
-    query: torch.Tensor,        # [1|P, Ns, 3] float32
+    query: torch.Tensor,        # [Pq, Ns, 3] float32, Pq a divisor of P
     ref_pts: torch.Tensor,      # [P, Nm, 3] float32
     ref_normals: torch.Tensor,  # [P, Nm, 3] float32
     *,
@@ -321,7 +345,9 @@ def nn_gather_batched(
     (matched [P,Ns,3], mnormal [P,Ns,3], d2 [P,Ns], idx [P,Ns] int32).
 
     A query with leading dim 1 is shared by every particle (the ICP case:
-    one scene, P posed models). CPU tensors take `nn_gather_plain`; CUDA
+    one scene, P posed models); with leading dim Pq, particle p searches
+    query p // (P // Pq) (a library: Pq scenes, P / Pq posed models each).
+    CPU tensors take `nn_gather_plain`; CUDA
     tensors launch the kernel with `plan` (default `nn_plan` of the
     shapes)."""
     Pq, Ns, P, Nm = _batched_shapes(query, ref_pts)
@@ -342,7 +368,7 @@ def nn_gather_batched(
             matched.data_ptr(), mnormal.data_ptr(), d2.data_ptr(),
             idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
     nn_gather_batched.launches += 1
-    nn_gather_batched.shapes[(P, Ns, Nm)] += 1
+    nn_gather_batched.shapes[(P, Pq, Ns, Nm)] += 1
     return matched, mnormal, d2, idx
 
 
@@ -351,14 +377,14 @@ nn_gather_batched.shapes = collections.Counter()
 
 
 def nn_batched(
-    query: torch.Tensor,  # [1|P, Ns, 3] float32
+    query: torch.Tensor,  # [Pq, Ns, 3] float32, Pq a divisor of P
     ref: torch.Tensor,    # [P, Nm, 3] float32
     *,
     plan: Plan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2, NN only: returns (idx [P,Ns] int32, d2 [P,Ns]). A query with
-    leading dim 1 is shared by every particle. CPU tensors take `nn_plain`;
-    CUDA tensors launch the kernel with `plan` (default `nn_plan`)."""
+    """K2, NN only: returns (idx [P,Ns] int32, d2 [P,Ns]). The query
+    blocks are K1's. CPU tensors take `nn_plain`; CUDA tensors launch the
+    kernel with `plan` (default `nn_plan`)."""
     Pq, Ns, P, Nm = _batched_shapes(query, ref)
     device = ref.device
     if not _route("K2", device, P=P, Ns=Ns, Nm=Nm):
@@ -371,7 +397,7 @@ def nn_batched(
     _launch("nn", device, _entry_points()[1], query.data_ptr(), ref.data_ptr(),
             d2.data_ptr(), idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
     nn_batched.launches += 1
-    nn_batched.shapes[(P, Ns, Nm)] += 1
+    nn_batched.shapes[(P, Pq, Ns, Nm)] += 1
     return idx, d2
 
 
@@ -380,9 +406,9 @@ nn_batched.shapes = collections.Counter()
 
 
 def nn_gn_batched(
-    scene_c: torch.Tensor,        # [Ns,3] float32
-    scene_normals: torch.Tensor,  # [Ns,3]
-    scene_w: torch.Tensor,        # [Ns]
+    scene_c: torch.Tensor,        # [Ns,3] or [G,Ns,3] float32, G a divisor of P
+    scene_normals: torch.Tensor,  # [Ns,3] or [G,Ns,3]
+    scene_w: torch.Tensor,        # [Ns] or [G,Ns]
     ref_c: torch.Tensor,          # [P,Nm,3]
     ref_normals: torch.Tensor,    # [P,Nm,3]
     *,
@@ -392,20 +418,26 @@ def nn_gn_batched(
     plan: Plan | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """K3, fused NN search + correspondence gates + normal equations:
-    returns (H [P,6,6], g [P,6], wsum [P], hits [P], wrr [P]). CPU tensors
+    returns (H [P,6,6], g [P,6], wsum [P], hits [P], wrr [P]). With G
+    scenes, particle p is matched against scene p // (P // G). CPU tensors
     take `nn_gn_plain`; CUDA tensors launch the kernel once with `plan`
     (default `gn_plan` of the shapes)."""
-    if scene_c.dim() != 2 or ref_c.dim() != 3:
-        raise ValueError("scene_c must be [Ns,3] and ref_c [P,Nm,3]")
-    Ns, P, Nm = scene_c.shape[0], ref_c.shape[0], ref_c.shape[1]
+    if scene_c.dim() not in (2, 3) or ref_c.dim() != 3:
+        raise ValueError("scene_c must be [Ns,3] or [G,Ns,3] and ref_c [P,Nm,3]")
+    if scene_c.dim() == 2:
+        scene_c, scene_normals, scene_w = scene_c[None], scene_normals[None], scene_w[None]
+    G, Ns = scene_c.shape[:2]
+    P, Nm = ref_c.shape[:2]
+    if P % G:
+        raise ValueError(f"scene batch {G} does not divide ref batch {P}")
     device = ref_c.device
     if not _route("K3", device, P=P, Ns=Ns, Nm=Nm):
         return nn_gn_plain(scene_c, scene_normals, scene_w, ref_c, ref_normals,
                            maxd2=maxd2, min_cos=min_cos, tau2=tau2)
     f32 = torch.float32
-    _check(device, ("scene_c", scene_c, (Ns, 3), f32),
-           ("scene_normals", scene_normals, (Ns, 3), f32),
-           ("scene_w", scene_w, (Ns,), f32),
+    _check(device, ("scene_c", scene_c, (G, Ns, 3), f32),
+           ("scene_normals", scene_normals, (G, Ns, 3), f32),
+           ("scene_w", scene_w, (G, Ns), f32),
            ("ref_c", ref_c, (P, Nm, 3), f32),
            ("ref_normals", ref_normals, (P, Nm, 3), f32))
     plan = plan or gn_plan(P, Ns, Nm)
@@ -425,10 +457,10 @@ def nn_gn_batched(
             wsum.data_ptr(), hits.data_ptr(), wrr.data_ptr(),
             partial.data_ptr() if partial is not None else None,
             arrived.data_ptr() if arrived is not None else None,
-            P, Ns, Nm, plan.q, plan.groups, plan.scene_split, float(maxd2),
+            P, G, Ns, Nm, plan.q, plan.groups, plan.scene_split, float(maxd2),
             float(min_cos), float(tau2))
     nn_gn_batched.launches += 1
-    nn_gn_batched.shapes[(P, Ns, Nm)] += 1
+    nn_gn_batched.shapes[(P, G, Ns, Nm)] += 1
     return H, g, wsum, hits, wrr
 
 
@@ -436,16 +468,30 @@ nn_gn_batched.launches = 0
 nn_gn_batched.shapes = collections.Counter()
 
 
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """[O,P,N,3] -> [O*P,N,3] contiguous ([P,N,3] passes through)."""
+    return t.reshape((-1,) + tuple(t.shape[-2:])).contiguous()
+
+
+def _unfold(outs: tuple, like: torch.Tensor) -> tuple:
+    """The kernels' [O*P,...] outputs back on the leading axes of `like`
+    ([O,P,N,3]; a [P,N,3] `like` leaves them as they are)."""
+    if like.dim() == 3:
+        return outs
+    return tuple(t.reshape(tuple(like.shape[:2]) + tuple(t.shape[1:])) for t in outs)
+
+
 def make_corr_fn():
-    """A `corr_fn(scene [Ns,3] or [P,Ns,3], posed_pts [P,Nm,3],
-    posed_normals [P,Nm,3]) -> (matched, mnormal, d2, idx)` drop-in for
-    ops/icp.py, backed by K1."""
+    """A `corr_fn(scene, posed_pts, posed_normals) -> (matched, mnormal, d2,
+    idx)` drop-in for ops/icp.py, backed by K1. Takes scene [Ns,3] (shared)
+    or [Pq,Ns,3] with posed [P,Nm,3], and, for a library, scene [1|O,Ns,3]
+    with posed [O,P,Nm,3]: object o's particles search scene o in the same
+    launch, and the outputs keep the [O,P] axes."""
 
     def corr_fn(scene_pts, posed_pts, posed_normals):
         q = scene_pts[None] if scene_pts.dim() == 2 else scene_pts
-        return nn_gather_batched(
-            q.contiguous(), posed_pts.contiguous(), posed_normals.contiguous()
-        )
+        return _unfold(nn_gather_batched(
+            q.contiguous(), _fold(posed_pts), _fold(posed_normals)), posed_pts)
 
     return corr_fn
 
@@ -453,31 +499,33 @@ def make_corr_fn():
 def make_nn_fn():
     """An `nn_fn(query, ref) -> (idx, d2)` drop-in for ops/icp.py, backed by
     K2. Takes [Ns,3] x [Nm,3] (-> [Ns]), [Ns,3] x [P,Nm,3] (a shared scene,
-    -> [P,Ns]) and [P,Ns,3] x [P,Nm,3]."""
+    -> [P,Ns]), [Pq,Ns,3] x [P,Nm,3], and for a library [1|O,Ns,3] x
+    [O,P,Nm,3] (-> [O,P,Ns])."""
 
     def nn_fn(query, ref):
         if query.dim() == 2 and ref.dim() == 2:
             idx, d2 = nn_batched(query[None].contiguous(), ref[None].contiguous())
             return idx[0], d2[0]
         q = query[None] if query.dim() == 2 else query
-        return nn_batched(q.contiguous(), ref.contiguous())
+        return _unfold(nn_batched(q.contiguous(), _fold(ref)), ref)
 
     return nn_fn
 
 
 def make_gn_fn(*, maxd2: float, min_cos: float, tau2: float = 0.0):
-    """A `gn_fn(scene_c, scene_normals, scene_w, ref_c [P,Nm,3],
-    ref_normals) -> (H, g, wsum, hits, wrr)` drop-in for
-    ops/icp.icp_batched(..., gn_fn=...), backed by K3. The gates are baked
-    in and exposed as attributes, so icp_batched can check them against its
-    own arguments."""
+    """A `gn_fn(scene_c, scene_normals, scene_w, ref_c, ref_normals) -> (H,
+    g, wsum, hits, wrr)` drop-in for ops/icp.icp_batched(..., gn_fn=...),
+    backed by K3: one scene ([Ns,...]) with ref_c [P,Nm,3], or for a library
+    O scenes ([O,Ns,...]) with ref_c [O,P,Nm,3] (outputs [O,P,...]). The
+    gates are baked in and exposed as attributes, so icp_batched can check
+    them against its own arguments."""
 
     def gn_fn(scene_c, scene_normals, scene_w, ref_c, ref_normals):
-        return nn_gn_batched(
+        return _unfold(nn_gn_batched(
             scene_c.contiguous(), scene_normals.contiguous(),
-            scene_w.contiguous(), ref_c.contiguous(), ref_normals.contiguous(),
+            scene_w.contiguous(), _fold(ref_c), _fold(ref_normals),
             maxd2=maxd2, min_cos=min_cos, tau2=tau2,
-        )
+        ), ref_c)
 
     gn_fn.maxd2 = float(maxd2)
     gn_fn.min_cos = float(min_cos)

@@ -2,15 +2,22 @@
 ops/pso.py).
 
 The reference's `lax.scan`s are Python loops here and its `lax.cond`s
-Python branches; the swarm is a [P,4,4] tensor. Per iteration: perturb,
+Python branches; a swarm is a [P,4,4] slice of an [O,P,4,4] tensor. Per iteration: perturb,
 in-scan ICP on fixed-size subsets, projective scoring plus the
 scene-support term, global best, elite resample. After the scan: explorer
 pulls, axial slides, the full-cloud ICP polish, fine-tier scoring and the
 score-only finisher. Every perturbation draws from `gen` (a
 torch.Generator or injected draws). With `gn_fn` (kernel K3) the in-scan
 refine and the explorer pulls run the fused search + normal-equation
-path; the polish keeps `corr_fn`/`nn_fn`. Sharding (`axis_name`) is not
-ported yet.
+path; the polish keeps `corr_fn`/`nn_fn`.
+
+A library of O objects is searched as one program (parallel/sharding.py):
+`pso` takes its arguments with a leading object axis (the swarms
+[O,P,4,4], one model per object, one observation per object or one for
+all), runs the per-particle math on all O x P particles at once and
+reduces each swarm per object; a single object is a library of one. The
+helpers around it take either form. Sharding a swarm over several devices
+(the reference's `axis_name`) is not ported.
 """
 from __future__ import annotations
 
@@ -39,20 +46,33 @@ class PsoResult(NamedTuple):
 
 
 def top_k(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries of a 1-D tensor, largest first, ties
-    to the lower index (the order `jax.lax.top_k` guarantees and
+    """Indices of the k largest entries along the last axis, largest first,
+    ties to the lower index (the order `jax.lax.top_k` guarantees and
     `torch.topk` does not)."""
-    return torch.sort(x, descending=True, stable=True).indices[:k]
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx, ...] along the axis that follows idx's own: x [C, ...]
+    with a scalar idx, or x [O, C, ...] with idx [O] (one pick per object)."""
+    d = idx.dim()
+    at = idx.reshape(tuple(idx.shape) + (1,) * (x.dim() - d))
+    return torch.take_along_dim(x, at, dim=d).squeeze(d)
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [O, C, ...] at idx [O, k] -> [O, k, ...]: k picks per object."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
 def score_particles(
-    poses: torch.Tensor,           # [P,4,4]
-    render_pts: torch.Tensor,      # [Nr,3]
-    render_normals: torch.Tensor,  # [Nr,3]
-    render_w: torch.Tensor,        # [Nr]
-    observed_depth: torch.Tensor,  # [h,w]
-    observed_valid: torch.Tensor,  # [h,w]
-    hand_depth: torch.Tensor,      # [h,w] +inf = no hand
+    poses: torch.Tensor,           # [P,4,4]          library: [O,P,4,4]
+    render_pts: torch.Tensor,      # [Nr,3]                    [O,Nr,3]
+    render_normals: torch.Tensor,  # [Nr,3]                    [O,Nr,3]
+    render_w: torch.Tensor,        # [Nr]                      [O,Nr]
+    observed_depth: torch.Tensor,  # [h,w]                     [1|O,h,w]
+    observed_valid: torch.Tensor,  # [h,w]                     [1|O,h,w]
+    hand_depth: torch.Tensor,      # [h,w] +inf = no hand      [1|O,h,w]
     *,
     fx: float, fy: float, cx: float, cy: float,
     height: int, width: int,
@@ -66,7 +86,11 @@ def score_particles(
     """Render-and-compare fitness for every particle: (fitness [P],
     coverage [P]). mode="point" (the default): projective per-sample
     association, no per-particle z-buffer. mode="pixel": one batched splat
-    render [P,h,w] and a per-pixel compare (exact z-buffered semantics)."""
+    render [P,h,w] and a per-pixel compare (exact z-buffered semantics).
+    For a library every output is [O,P] and sample_mask [O,Nr]."""
+    library = poses.dim() == 4
+    if library:       # each object's samples beside its particle axis
+        render_pts, render_normals = render_pts[:, None], render_normals[:, None]
     pts_cam = se3.transform_points(poses, render_pts)
     if score_cfg.mode == "point":
         nrm_cam = se3.rotate_vectors(poses, render_normals)
@@ -88,10 +112,16 @@ def score_particles(
     else:
         if sample_mask is not None:
             render_w = render_w * sample_mask
+        if library:
+            render_w = render_w[:, None]
+        # one render per particle (of every object): [..., P] folded to one axis
+        lead, Nr = tuple(pts_cam.shape[:-2]), pts_cam.shape[-2]
         depths = render.splat_depth_batched(
-            pts_cam, render_w, fx=fx, fy=fy, cx=cx, cy=cy,
+            pts_cam.reshape(-1, Nr, 3),
+            render_w.expand(lead + (Nr,)).reshape(-1, Nr),
+            fx=fx, fy=fy, cx=cx, cy=cy,
             height=height, width=width, radius=splat_radius,
-        )                                                   # [P,h,w]
+        ).reshape(lead + (height, width))                   # [P,h,w] / [O,P,h,w]
         terms = score.compare_depth(
             depths, observed_depth, observed_valid, hand_depth,
             depth_tau=score_cfg.depth_tau,
@@ -107,49 +137,54 @@ def score_particles(
 def _mean_displacement(poses: torch.Tensor, prior_pose: torch.Tensor,
                        model_pts: torch.Tensor) -> torch.Tensor:
     """[C] mean point-to-point displacement of a 128-point model subset
-    between each pose and the prior."""
-    sub = model_pts[: min(128, model_pts.shape[0])]
-    pa = se3.transform_points(poses, sub)
+    between each pose and the prior (library: poses [O,C,4,4], prior
+    [O,4,4], model [O,Nm,3] -> [O,C])."""
+    sub = model_pts[..., :128, :]
+    pa = se3.transform_points(poses, sub[..., None, :, :])
     pb = se3.transform_points(prior_pose, sub)
-    return torch.mean(torch.linalg.norm(pa - pb[None], dim=-1), dim=-1)
+    return torch.mean(torch.linalg.norm(pa - pb[..., None, :, :], dim=-1), dim=-1)
 
 
 def continuity_select(cand_poses, cand_fitness, prior_pose, model_pts, *,
                       eps: float) -> torch.Tensor:
     """Among candidates within eps*|best| of the top fitness, the index of
-    the one closest to the prior pose (PsoConfig.tie_break_eps)."""
+    the one closest to the prior pose (PsoConfig.tie_break_eps); one index
+    per object for a library ([O,C] fitness)."""
     d_prior = _mean_displacement(cand_poses, prior_pose, model_pts)
-    fmax = torch.max(cand_fitness)
+    fmax = torch.amax(cand_fitness, dim=-1, keepdim=True)
     elig = cand_fitness >= fmax - eps * torch.abs(fmax)
-    return torch.argmin(torch.where(elig, d_prior, float("inf")))
+    return torch.argmin(torch.where(elig, d_prior, float("inf")), dim=-1)
 
 
 def snap_to_branch(
-    pose: torch.Tensor,        # [4,4] selected best pose
-    prior_pose: torch.Tensor,  # [4,4]
-    symmetries: torch.Tensor,  # [S,4,4] symmetry group incl. identity
-    model_pts: torch.Tensor,   # [Nm,3]
+    pose: torch.Tensor,        # [4,4] selected best pose   library: [O,4,4]
+    prior_pose: torch.Tensor,  # [4,4]                               [O,4,4]
+    symmetries: torch.Tensor,  # [S,4,4] group incl. identity        [O,S,4,4]
+    model_pts: torch.Tensor,   # [Nm,3]                              [O,Nm,3]
 ) -> torch.Tensor:
     """pose @ S* for the symmetry S* whose branch lies closest to the prior
-    (an exact twin renders the same depth, so the branch is convention)."""
-    cands = pose[None] @ symmetries
-    return cands[torch.argmin(_mean_displacement(cands, prior_pose, model_pts))]
+    (an exact twin renders the same depth, so the branch is convention).
+    A library's groups are identity-padded to one size: the first of equal
+    branches wins, so the padding never does."""
+    cands = pose[..., None, :, :] @ symmetries
+    return pick(cands, torch.argmin(
+        _mean_displacement(cands, prior_pose, model_pts), dim=-1))
 
 
 def pso(
     gen,
-    poses0: torch.Tensor,          # [P,4,4] initial swarm
-    scene_pts: torch.Tensor,       # [Ns,3]
-    scene_normals: torch.Tensor,   # [Ns,3]
-    scene_weights: torch.Tensor,   # [Ns]
-    model_pts: torch.Tensor,       # [Nm,3]
-    model_normals: torch.Tensor,   # [Nm,3]
-    render_pts: torch.Tensor,      # [Nr,3]
-    render_normals: torch.Tensor,  # [Nr,3]
-    render_w: torch.Tensor,        # [Nr]
-    observed_depth: torch.Tensor,  # [h,w]
-    observed_valid: torch.Tensor,  # [h,w]
-    hand_depth: torch.Tensor,      # [h,w]
+    poses0: torch.Tensor,          # [O,P,4,4] initial swarms
+    scene_pts: torch.Tensor,       # [1|O,Ns,3]
+    scene_normals: torch.Tensor,   # [1|O,Ns,3]
+    scene_weights: torch.Tensor,   # [O,Ns]
+    model_pts: torch.Tensor,       # [O,Nm,3]
+    model_normals: torch.Tensor,   # [O,Nm,3]
+    render_pts: torch.Tensor,      # [O,Nr,3]
+    render_normals: torch.Tensor,  # [O,Nr,3]
+    render_w: torch.Tensor,        # [O,Nr]
+    observed_depth: torch.Tensor,  # [1|O,h,w]
+    observed_valid: torch.Tensor,  # [1|O,h,w]
+    hand_depth: torch.Tensor,      # [1|O,h,w]
     *,
     fx: float, fy: float, cx: float, cy: float,
     height: int, width: int,
@@ -167,17 +202,23 @@ def pso(
     prior_valid: bool = True,
     explorer_seeds: torch.Tensor | None = None,
 ) -> PsoResult:
-    """Annealed swarm search over SE(3) with in-loop batched ICP refine.
+    """Annealed swarm search over SE(3) with in-loop batched ICP refine, for
+    a library of O objects at once (a single object is a library of one:
+    Estimator._frame_step).
 
+    Every tensor argument and every field of the result carries the object
+    axis (the observations may keep length 1: one frame for all objects);
+    `gen` is an rng.Stack of one source per object.
     observed_hi = (depth, valid, neutral, hand_depth, fx, fy, cx, cy, h, w)
-    is the full-resolution scoring tier of the polish and finisher;
-    render_vis [Nr] the frame-constant self-occlusion sample mask;
-    explorer_seeds [E,4,4] global seeds refined outside the swarm."""
-    P = poses0.shape[0]
+    is the full-resolution scoring tier of the polish and finisher (its
+    images [1|O,H,W]); render_vis [O,Nr] the frame-constant self-occlusion
+    sample mask; prior_pose [O,4,4]; explorer_seeds [O,E,4,4] global seeds
+    refined outside the swarm."""
+    O, P = poses0.shape[:2]
     dev = poses0.device
     n_resample = max(1, int(round(P * pso_cfg.elite_frac))) if P > 1 else 0
 
-    kr = min(pso_cfg.scan_render_subset, render_pts.shape[0])
+    kr = min(pso_cfg.scan_render_subset, render_pts.shape[1])
     enc_lo = score.encode_observed(
         observed_depth, observed_valid, score_cfg.ghost_dilate,
         neutral=observed_neutral,
@@ -186,14 +227,14 @@ def pso(
     mxu_lo = ("image", enc_lo, score.hand_table(hand_depth)) if use_mxu else None
     score_fn = partial(
         score_particles,
-        render_pts=render_pts[:kr], render_normals=render_normals[:kr],
-        render_w=render_w[:kr],
+        render_pts=render_pts[:, :kr], render_normals=render_normals[:, :kr],
+        render_w=render_w[:, :kr],
         observed_depth=observed_depth, observed_valid=observed_valid,
         hand_depth=hand_depth,
         fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
         splat_radius=splat_radius, score_cfg=score_cfg,
         observed_enc=enc_lo, mxu_tables=mxu_lo,
-        sample_mask=None if render_vis is None else render_vis[:kr],
+        sample_mask=None if render_vis is None else render_vis[:, :kr],
     )
     if observed_hi is not None:
         (d_hi, v_hi, n_hi, h_hi, fx_h, fy_h, cx_h, cy_h, hh, wh) = observed_hi
@@ -218,16 +259,16 @@ def pso(
         score_fn_hi = score_fn
         score_cfg_hi = score_cfg
 
-    ks = min(pso_cfg.icp_scene_subset, scene_pts.shape[0])
-    km = min(pso_cfg.icp_model_subset, model_pts.shape[0])
+    ks = min(pso_cfg.icp_scene_subset, scene_pts.shape[1])
+    km = min(pso_cfg.icp_model_subset, model_pts.shape[1])
     cov_w = float(score_cfg.scene_cov_weight)
     cov_tau = float(score_cfg.scene_cov_tau)
     use_cov = cov_w > 0.0
 
     def refine(poses):
         refined, st = icp_mod.icp_batched(
-            poses, scene_pts[:ks], scene_normals[:ks], scene_weights[:ks],
-            model_pts[:km], model_normals[:km],
+            poses, scene_pts[:, :ks], scene_normals[:, :ks], scene_weights[:, :ks],
+            model_pts[:, :km], model_normals[:, :km],
             iters=pso_cfg.icp_iters_inner,
             max_corresp_dist=icp_cfg.max_corresp_dist,
             normal_angle_max_deg=icp_cfg.normal_angle_max_deg,
@@ -242,21 +283,24 @@ def pso(
 
     def sub_support(poses):
         return icp_mod.scene_support(
-            poses, scene_pts[:ks], scene_weights[:ks],
-            model_pts[:km], model_normals[:km],
+            poses, scene_pts[:, :ks], scene_weights[:, :ks],
+            model_pts[:, :km], model_normals[:, :km],
             tau=cov_tau, nn_fn=nn_fn, corr_fn=corr_fn,
         )
 
     def swarm_best(poses, fitness, coverage):
-        bi = torch.argmax(fitness)
-        return poses[bi], fitness[bi], coverage[bi]
+        bi = torch.argmax(fitness, dim=1)                      # [O]
+        return pick(poses, bi), pick(fitness, bi), pick(coverage, bi)
+
+    def keep_better(improved, new, old):
+        return torch.where(improved.reshape((O,) + (1,) * (new.dim() - 1)), new, old)
 
     fitness, coverage = score_fn(poses0)
     if use_cov:
         supp = sub_support(poses0)
         fitness = fitness + cov_w * (supp - 1.0)
     else:
-        supp = torch.zeros((P,), dtype=poses0.dtype, device=dev)
+        supp = torch.zeros((O, P), dtype=poses0.dtype, device=dev)
     poses = poses0
     best_pose, best_fit, best_cov = swarm_best(poses0, fitness, coverage)
     sig = 1.0
@@ -267,7 +311,7 @@ def pso(
             gen, poses, pso_cfg.rot_sigma * sig, pso_cfg.trans_sigma * sig,
             shape=(P,),
         )
-        poses[0] = best_pose
+        poses[:, 0] = best_pose
         # 2. ICP refine every icp_every iterations (support rides along)
         if pso_cfg.icp_every > 0:
             if it % pso_cfg.icp_every == 0:
@@ -278,37 +322,38 @@ def pso(
         fitness, coverage = score_fn(poses)
         if use_cov:
             fitness = fitness + cov_w * (supp - 1.0)
-        # 4. global best update
+        # 4. global best update, per object
         bp, bf, bc = swarm_best(poses, fitness, coverage)
         improved = bf > best_fit
-        best_pose = torch.where(improved, bp, best_pose)
-        best_fit = torch.where(improved, bf, best_fit)
-        best_cov = torch.where(improved, bc, best_cov)
+        best_pose = keep_better(improved, bp, best_pose)
+        best_fit = keep_better(improved, bf, best_fit)
+        best_cov = keep_better(improved, bc, best_cov)
         # 5. elite resample: the worst particles teleport near the best
         if n_resample > 0:
-            worst = top_k(-fitness, n_resample)
+            worst = top_k(-fitness, n_resample)                # [O,n]
             fresh = se3.perturb_pose(
-                gen, best_pose,
+                gen, best_pose[:, None],
                 pso_cfg.rot_sigma * sig, pso_cfg.trans_sigma * sig,
                 shape=(n_resample,),
             )
             if it >= pso_cfg.resample_after:
+                rows = torch.arange(O, device=dev)[:, None]
                 poses = poses.clone()
-                poses[worst] = fresh
+                poses[rows, worst] = fresh
                 fitness = fitness.clone()
-                fitness[worst] = -float("inf")
+                fitness[rows, worst] = -float("inf")
         sig = sig * pso_cfg.sigma_decay
         trace.append(best_fit)
-    trace = torch.stack(trace) if trace else torch.zeros((0,), device=dev)
+    trace = (torch.stack(trace, dim=1) if trace
+             else torch.zeros((O, 0), device=dev))
 
     # Final polish at the FINE tier over the top-K swarm candidates, plus
     # the best explorer seed and the axial-slide proposals.
     K = max(0, min(pso_cfg.polish_top_k, P - 1))
     if K > 0:
-        topi = top_k(fitness, K)
-        cands = torch.cat([best_pose[None], poses[topi]])
+        cands = torch.cat([best_pose[:, None], take(poses, top_k(fitness, K))], dim=1)
     else:
-        cands = best_pose[None]
+        cands = best_pose[:, None]
     if explorer_seeds is not None:
         refined_seeds, supp_exp = refine(explorer_seeds)
         for _ in range(2):                      # seeds start far out
@@ -316,23 +361,29 @@ def pso(
         f_exp, _ = score_fn(refined_seeds)
         if use_cov:
             f_exp = f_exp + cov_w * (supp_exp - 1.0)
-        cands = torch.cat([cands, refined_seeds[torch.argmax(f_exp)][None]])
+        cands = torch.cat(
+            [cands, pick(refined_seeds, torch.argmax(f_exp, dim=1))[:, None]], dim=1)
     n_slide = pso_cfg.slide_proposals
     if n_slide > 1:
-        mc = torch.mean(model_pts, dim=0)
-        Xc = model_pts - mc
-        _, evecs = torch.linalg.eigh(Xc.T @ Xc)
-        ax = evecs[:, -1]                                  # model frame
-        proj = Xc @ ax
-        extent = torch.max(proj) - torch.min(proj)
+        # each object's principal axis, its extent along it and the axis in
+        # the camera frame: a few small products and one eigh per object,
+        # so a library member gets the numbers it gets alone
+        extent, d_cam = [], []
+        for x, bp in zip(model_pts, best_pose):
+            Xc = x - torch.mean(x, dim=0)
+            _, evecs = torch.linalg.eigh(Xc.T @ Xc)
+            ax = evecs[:, -1]                                  # model frame
+            proj = Xc @ ax
+            extent.append(torch.max(proj) - torch.min(proj))
+            d_cam.append(bp[:3, :3] @ ax)                      # camera frame
+        extent, d_cam = torch.stack(extent), torch.stack(d_cam)   # [O], [O,3]
         half = n_slide // 2
         fr = (torch.arange(1, half + 1, dtype=poses0.dtype, device=dev) / half
               * pso_cfg.slide_max_frac)
-        offs = torch.cat([fr, -fr]) * extent              # [2*half]
-        d_cam = best_pose[:3, :3] @ ax                     # camera frame
-        slid = best_pose[None].repeat(offs.shape[0], 1, 1)
-        slid[:, :3, 3] += offs[:, None] * d_cam[None]
-        cands = torch.cat([cands, slid])
+        offs = torch.cat([fr, -fr]) * extent[:, None]          # [O,2*half]
+        slid = best_pose[:, None].repeat(1, offs.shape[1], 1, 1)
+        slid[:, :, :3, 3] += offs[:, :, None] * d_cam[:, None]
+        cands = torch.cat([cands, slid], dim=1)
     polished, pol_stats = icp_mod.icp_batched(
         cands, scene_pts, scene_normals, scene_weights,
         model_pts, model_normals,
@@ -357,15 +408,15 @@ def pso(
     take_pol = f_p >= f_c - pso_cfg.polish_accept_tol
     f_sel = torch.where(take_pol, f_p, f_c)
     c_sel = torch.where(take_pol, c_p, c_c)
-    p_sel = torch.where(take_pol[:, None, None], polished, cands)
+    p_sel = torch.where(take_pol[..., None, None], polished, cands)
     s_sel = (torch.where(take_pol, pol_stats.support, supp_c) if use_cov
              else torch.zeros_like(f_sel))
-    bi = torch.argmax(f_sel)
+    bi = torch.argmax(f_sel, dim=1)
     if prior_pose is not None and pso_cfg.tie_break_eps > 0 and prior_valid:
         bi = continuity_select(p_sel, f_sel, prior_pose, model_pts,
                                eps=pso_cfg.tie_break_eps)
-    best_pose, best_fit, best_cov = p_sel[bi], f_sel[bi], c_sel[bi]
-    term0 = cov_w * (s_sel[bi] - 1.0) if use_cov else 0.0
+    best_pose, best_fit, best_cov = pick(p_sel, bi), pick(f_sel, bi), pick(c_sel, bi)
+    term0 = (cov_w * (pick(s_sel, bi) - 1.0))[:, None] if use_cov else 0.0
 
     # Score-only annealed finisher around the selected best (no ICP).
     if pso_cfg.finish_iters > 0:
@@ -376,7 +427,7 @@ def pso(
             # per-sample patches around the reference projections: a
             # finisher candidate reads 0.0 outside its sample's patch
             S = pso_cfg.finish_patch
-            ref = se3.transform_points(best_pose, render_pts)     # [Nr,3]
+            ref = se3.transform_points(best_pose, render_pts)     # [O,Nr,3]
             zr = torch.clamp(ref[..., 2], min=1e-6)
             ur = torch.round(ref[..., 0] / zr * fx_h + cx_h).to(torch.int64)
             vr = torch.round(ref[..., 1] / zr * fy_h + cy_h).to(torch.int64)
@@ -393,19 +444,19 @@ def pso(
         sig = 1.0
         for _ in range(pso_cfg.finish_iters):
             cand = se3.perturb_pose(
-                gen, best_pose,
+                gen, best_pose[:, None],
                 pso_cfg.rot_sigma * fs0 * sig * ladder,
                 pso_cfg.trans_sigma * fs0 * sig * ladder,
                 shape=(Pf,),
             )
-            cand[0] = best_pose
+            cand[:, 0] = best_pose
             f, c = score_fn_fin(cand)
             f = f + term0
             bp, bf, bc = swarm_best(cand, f, c)
             improved = bf > best_fit
-            best_pose = torch.where(improved, bp, best_pose)
-            best_fit = torch.where(improved, bf, best_fit)
-            best_cov = torch.where(improved, bc, best_cov)
+            best_pose = keep_better(improved, bp, best_pose)
+            best_fit = keep_better(improved, bf, best_fit)
+            best_cov = keep_better(improved, bc, best_cov)
             sig = sig * iter_decay
 
     return PsoResult(
@@ -416,8 +467,8 @@ def pso(
 
 
 def diverse_hypotheses(
-    cand_poses: torch.Tensor,     # [C,4,4]
-    cand_fitness: torch.Tensor,   # [C]
+    cand_poses: torch.Tensor,     # [C,4,4]      library: [O,C,4,4]
+    cand_fitness: torch.Tensor,   # [C]                   [O,C]
     n: int,
     *,
     first_pose: torch.Tensor | None = None,
@@ -427,29 +478,33 @@ def diverse_hypotheses(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Greedy farthest-basin selection of n hypotheses, each at least
     (rot_min_deg OR trans_min) from all earlier picks; slots without a
-    distinct basin get fitness -inf."""
+    distinct basin get fitness -inf. Each pass picks one slot, for every
+    object of a library at once: ([O,n,4,4], [O,n])."""
     sel_p, sel_f = [], []
     avail = cand_fitness
     neg_inf = torch.full_like(cand_fitness, -float("inf"))
     if first_pose is not None:
         sel_p.append(first_pose)
         sel_f.append(first_fitness if first_fitness is not None
-                     else cand_fitness.max())
+                     else cand_fitness.amax(dim=-1))
         avail = torch.where(_near_pose(cand_poses, first_pose, rot_min_deg,
                                        trans_min), neg_inf, avail)
     while len(sel_p) < n:
-        i = torch.argmax(avail)
-        p = cand_poses[i]
+        i = torch.argmax(avail, dim=-1)
+        p = pick(cand_poses, i)
+        a = pick(avail, i)
         sel_p.append(p)
-        sel_f.append(torch.where(torch.isfinite(avail[i]), avail[i], neg_inf[0]))
+        sel_f.append(torch.where(torch.isfinite(a), a, -float("inf")))
         avail = torch.where(_near_pose(cand_poses, p, rot_min_deg, trans_min),
                             neg_inf, avail)
-    return torch.stack(sel_p), torch.stack(sel_f)
+    return torch.stack(sel_p, dim=-3), torch.stack(sel_f, dim=-1)
 
 
 def _near_pose(poses, pose, rot_min_deg, trans_min):
-    """[C] bool: within BOTH rotation and translation radii of `pose`."""
-    cos = (torch.sum(poses[:, :3, :3] * pose[:3, :3], dim=(-1, -2)) - 1.0) / 2.0
+    """[C] bool: within BOTH rotation and translation radii of `pose`
+    ([O,C] for poses [O,C,4,4] and pose [O,4,4])."""
+    pose = pose[..., None, :, :]
+    cos = (torch.sum(poses[..., :3, :3] * pose[..., :3, :3], dim=(-1, -2)) - 1.0) / 2.0
     rot_deg = torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))
-    tr = torch.linalg.norm(poses[:, :3, 3] - pose[:3, 3], dim=-1)
+    tr = torch.linalg.norm(poses[..., :3, 3] - pose[..., :3, 3], dim=-1)
     return (rot_deg < rot_min_deg) & (tr < trans_min)

@@ -20,6 +20,11 @@ reference are kept, chosen by `ScoreConfig.gather_mode`:
     reference patch, reads 0.0; the hand image carries _FAR instead of
     +inf and occludes only where `0 < d_hand < z - margin`. The values are
     exact here, where the TPU's double-bf16 split was good to ~3 um.
+
+A library of O objects is scored in one pass: the samples then carry a
+leading object axis ([O,P,N,3]) and each image argument is [O,H,W] (one
+observation per object) or [1,H,W] (one shared by all); object o's samples
+read image o. The [H,W] form is the single-object case.
 """
 from __future__ import annotations
 
@@ -42,8 +47,17 @@ _NEAR = -1.0     # no return within ghost_dilate px of a return: no penalty
 _NEUTRAL = -2.0  # measured in range but excluded from evidence
 
 
+def _read(img: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """img.reshape(-1)[flat] for one image ([H,W], or [1,H,W] shared by
+    every object); with [O,H,W], row o of flat ([O,...]) reads image o."""
+    if img.dim() == 2 or img.shape[0] == 1:
+        return img.reshape(-1)[flat]
+    O = img.shape[0]
+    return torch.gather(img.reshape(O, -1), 1, flat.reshape(O, -1)).reshape(flat.shape)
+
+
 def encode_observed(
-    observed: torch.Tensor,        # [H,W] depth, 0 invalid
+    observed: torch.Tensor,        # [H,W] depth, 0 invalid ([O,H,W]: per object)
     observed_valid: torch.Tensor,  # [H,W] bool
     ghost_dilate: int = 1,
     neutral: torch.Tensor | None = None,
@@ -62,11 +76,13 @@ def encode_observed(
 
 
 def _near_return(observed_valid: torch.Tensor, ghost_dilate: int) -> torch.Tensor:
-    """[H,W] bool: within `ghost_dilate` px of a valid return (a SAME-padded
-    (2d+1)^2 OR window)."""
+    """[...,H,W] bool: within `ghost_dilate` px of a valid return (a
+    SAME-padded (2d+1)^2 OR window)."""
     k = 2 * ghost_dilate + 1
-    return F.max_pool2d(observed_valid.to(torch.float32)[None, None],
-                        kernel_size=k, stride=1, padding=ghost_dilate)[0, 0] > 0
+    H, W = observed_valid.shape[-2:]
+    near = F.max_pool2d(observed_valid.to(torch.float32).reshape(-1, 1, H, W),
+                        kernel_size=k, stride=1, padding=ghost_dilate)
+    return near.reshape(observed_valid.shape) > 0
 
 
 def compare_depth(
@@ -86,9 +102,14 @@ def compare_depth(
     pixel; broadcasts over leading particle axes of `rendered`. Rendered
     pixels within `ghost_dilate` px of a valid return are not ghosts;
     `observed_enc` (encode_observed's output) carries that band
-    precomputed."""
+    precomputed. With [O,H,W] observations, `rendered` is [O,P,H,W]."""
     dt = rendered.dtype
     inf = float("inf")
+    if observed.dim() == 3:
+        # one observation per object (or one for all): beside the particle axis
+        observed, observed_valid = observed[:, None], observed_valid[:, None]
+        hand_depth = None if hand_depth is None else hand_depth[:, None]
+        observed_enc = None if observed_enc is None else observed_enc[:, None]
     r_valid = torch.isfinite(rendered)
     if hand_depth is not None:
         visible = r_valid & ~(hand_depth < rendered - occlusion_margin)
@@ -123,7 +144,7 @@ def compare_depth(
     fitness = torch.where(n_counted > 0, fitness,
                           torch.full_like(fitness, -wrong_side_penalty))
 
-    n_obs = torch.clamp(torch.sum(observed_valid.to(dt)), min=1.0)
+    n_obs = torch.clamp(torch.sum(observed_valid.to(dt), dim=axes), min=1.0)
     coverage = torch.sum(match.to(dt), dim=axes) / n_obs
     return ScoreTerms(fitness=fitness, coverage=coverage, support=support,
                       counted=n_counted)
@@ -132,24 +153,26 @@ def compare_depth(
 def pack_quad(enc: torch.Tensor) -> torch.Tensor:
     """[H,W] encoded image -> [(H+1)*(W+1), 4] per-cell 2x2 neighbourhoods
     with a _FAR border: row (v0+1)*(W+1)+(u0+1) holds enc at (v0,u0),
-    (v0,u0+1), (v0+1,u0), (v0+1,u0+1)."""
-    ep = F.pad(enc[None, None], (1, 1, 1, 1), value=_FAR)[0, 0]
-    q = torch.stack([ep[:-1, :-1], ep[:-1, 1:], ep[1:, :-1], ep[1:, 1:]], dim=-1)
-    return q.reshape(-1, 4)
+    (v0,u0+1), (v0+1,u0), (v0+1,u0+1). [O,H,W] -> [O,(H+1)*(W+1),4]."""
+    ep = F.pad(enc, (1, 1, 1, 1), value=_FAR)
+    q = torch.stack([ep[..., :-1, :-1], ep[..., :-1, 1:], ep[..., 1:, :-1],
+                     ep[..., 1:, 1:]], dim=-1)
+    return q.reshape(tuple(enc.shape[:-2]) + (-1, 4))
 
 
 def _take_zero(img: torch.Tensor, vi: torch.Tensor, ui: torch.Tensor,
                patch: tuple | None = None) -> torch.Tensor:
     """img[vi, ui], reading 0.0 outside the image or, with patch =
-    (pv0, pu0, size), outside each sample's [size,size] patch."""
-    H, W = img.shape
+    (pv0, pu0, size), outside each sample's [size,size] patch. img [H,W],
+    or [O,H,W] with vi/ui [O,P,N] (patch origins then [O,1,N])."""
+    H, W = img.shape[-2:]
     ok = (vi >= 0) & (vi < H) & (ui >= 0) & (ui < W)
     if patch is not None:
         pv0, pu0, size = patch
         lv, lu = vi - pv0, ui - pu0
         ok = ok & (lv >= 0) & (lv < size) & (lu >= 0) & (lu < size)
     flat = torch.where(ok, vi * W + ui, 0)
-    return torch.where(ok, img.reshape(-1)[flat], 0.0)
+    return torch.where(ok, _read(img, flat), 0.0)
 
 
 def _bilinear_depth(
@@ -162,7 +185,12 @@ def _bilinear_depth(
     u0 = torch.floor(u)
     v0 = torch.floor(v)
     base = torch.where(inb, (v0.long() + 1) * (width + 1) + (u0.long() + 1), 0)
-    quad = packed[base]                                        # [...,N,4]
+    if packed.dim() == 2 or packed.shape[0] == 1:
+        quad = packed.reshape(-1, 4)[base]                     # [...,N,4]
+    else:
+        O = packed.shape[0]
+        quad = torch.gather(packed, 1, base.reshape(O, -1, 1).expand(-1, -1, 4)
+                            ).reshape(tuple(base.shape) + (4,))
     return _edge_aware_combine(u - u0, v - v0, inb,
                                [quad[..., k] for k in range(4)], edge_tau)
 
@@ -208,9 +236,9 @@ def hand_table(hand_depth: torch.Tensor) -> torch.Tensor:
 def compare_points(
     pts_cam: torch.Tensor,         # [...,N,3] posed model surface samples
     normals_cam: torch.Tensor,     # [...,N,3] posed outward normals
-    observed: torch.Tensor,        # [H,W] observed depth (0 invalid)
+    observed: torch.Tensor,        # [H,W] observed depth (0 invalid), or [O,H,W]
     observed_valid: torch.Tensor,  # [H,W] bool
-    hand_depth: torch.Tensor | None = None,  # [H,W] (+inf none)
+    hand_depth: torch.Tensor | None = None,  # [H,W] (+inf none), or [O,H,W]
     *,
     fx: float, fy: float, cx: float, cy: float,
     height: int, width: int,
@@ -223,7 +251,7 @@ def compare_points(
     observed_enc: torch.Tensor | None = None,
     mxu_tables: tuple | None = None,
     neutral_cov_exempt: bool = False,
-    sample_mask: torch.Tensor | None = None,  # [N] bool
+    sample_mask: torch.Tensor | None = None,  # [N] bool, or [O,N]
     mask_count_floor: float = 0.5,
 ) -> ScoreTerms:
     """Point-wise render-and-compare: each posed sample looks up the
@@ -235,7 +263,12 @@ def compare_points(
       ("patch", enc, hand, pv0, pu0, size)  per-sample [size,size] patches
                                             at origins pv0/pu0 [N];
     enc is the encoded observed image, hand = hand_table(hand depth) or
-    None. Without it the "take" rule applies."""
+    None. Without it the "take" rule applies.
+
+    With [O,H,W] images (one per object, or [1,H,W] for all) pts_cam is
+    [O,P,N,3]; sample_mask and the patch origins are then [O,N]."""
+    if sample_mask is not None and sample_mask.dim() == 2:
+        sample_mask = sample_mask[:, None]                      # [O,1,N]
     x, y, z = pts_cam[..., 0], pts_cam[..., 1], pts_cam[..., 2]
     in_front = z > 1e-6
     zs = torch.where(in_front, z, 1.0)
@@ -250,6 +283,8 @@ def compare_points(
     if mxu_tables is not None:
         if mxu_tables[0] == "patch":
             _, enc, hand, pv0, pu0, size = mxu_tables
+            if pv0.dim() == 2:
+                pv0, pu0 = pv0[:, None], pu0[:, None]          # [O,1,N]
             patch = (pv0, pu0, size)
         else:
             _, enc, hand = mxu_tables
@@ -279,11 +314,11 @@ def compare_points(
                 height=height, width=width, edge_tau=3.0 * depth_tau,
             )
         else:
-            e_ref = observed_enc.reshape(-1)[flat]
+            e_ref = _read(observed_enc, flat)
             v_obs = inb & (e_ref > 0.0) & (e_ref < 0.5 * _FAR)
             d_obs = e_ref
         if hand_depth is not None:
-            d_hand = hand_depth.reshape(-1)[flat]
+            d_hand = _read(hand_depth, flat)
             vis = vis & ~(d_hand < z - occlusion_margin)
 
     vis0 = vis

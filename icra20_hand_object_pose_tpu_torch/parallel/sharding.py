@@ -1,0 +1,378 @@
+"""The multi-object library sweep (counterpart of parallel/sharding.py).
+
+    sweep = LibrarySweep(objects, make_t42_hand(), cfg)        # on "cuda"
+    state = sweep.init_state()
+    for depths, hand_bases, hand_qs in frames:                 # [O,H,W] ...
+        state, res = sweep.step(state, depths, hand_bases, hand_qs)
+        res.poses  # [O,4,4]
+
+Every object of a library is tracked in one program on one device: the
+model tensors are stacked [O,...] and the object axis is a batch axis of
+the search (`Estimator._search`, ops/pso.py, ops/icp.py, ops/score.py),
+not a Python loop over objects. The nearest-neighbour kernels take one
+scene per object in a single launch (ops/knn_cuda.py). `Tracker.step` is
+the O = 1 case of the same code.
+
+A frame runs the track program, the init program (the single-object init:
+prescreen, delayed resample, init-only scoring, the reinit swarm and ICP
+cadence), or on a mixed frame both over all O objects, merged by the
+watchdog mask. The one host read per frame is that [O] mask.
+
+The reference also shards the object axis and each swarm over a device
+mesh (`mesh=`, `particle_axis=`, `make_mesh`). That is not ported: both
+arguments raise NotImplementedError (ROADMAP.md, "Still to port").
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..models.estimator import Estimator, FrameResult, _ckpt_path, _generator, _split
+from ..models.hand import HandModel
+from ..models.object_model import ObjectModel
+from ..utils import rng, se3
+from ..utils.config import EstimatorConfig
+
+
+class SweepState(NamedTuple):
+    """Per-object tracker state, batched: a library's whole resumable
+    state."""
+    poses: torch.Tensor        # [O,4,4]
+    fitness: torch.Tensor      # [O]
+    initialized: torch.Tensor  # [O] bool
+    key: int                   # seed from which the next frame's seeds are split
+    frame_idx: int
+    coverage: torch.Tensor | None = None     # [O] watchdog second signal
+    hyp_poses: torch.Tensor | None = None    # [O,H,4,4] competing basins (H>1)
+    hyp_fitness: torch.Tensor | None = None  # [O,H]
+    prev_poses: torch.Tensor | None = None   # [O,4,4] pose one frame earlier
+    vel_ok: torch.Tensor | None = None       # [O] bool: prev_poses usable for
+                                             # the constant-velocity prior (both
+                                             # endpoints tracked frames)
+    pose_tracked: torch.Tensor | None = None  # [O] bool: `poses` from a
+                                              # tracked (not init) frame
+
+
+class SweepResult(NamedTuple):
+    poses: torch.Tensor          # [O,4,4]
+    fitness: torch.Tensor        # [O]
+    coverage: torch.Tensor       # [O]
+    reinitialized: torch.Tensor  # [O] bool: which objects re-registered
+    hyp_poses: torch.Tensor | None = None    # [O,H,4,4] when n_hypotheses > 1
+    hyp_fitness: torch.Tensor | None = None  # [O,H]
+
+
+def frame_seeds(key: int, n_objects: int) -> tuple[int, list[int], list[int]]:
+    """(next key, the track program's per-object seeds, the init
+    program's) from a sweep key: the key advances as a Tracker's does."""
+    key, sub = _split(key)
+    k_t, k_i = _split(sub)
+    return key, list(_split(k_t, n_objects)), list(_split(k_i, n_objects))
+
+
+class LibrarySweep:
+    """Track O objects concurrently as one batched program on one device.
+
+    `shared_scene=True` is the model-library mode (one observed frame, O
+    candidate models: which object is in the hand, and where?): step() then
+    takes an unbatched depth [H,W] / hand_base [4,4] / hand_q [J], the
+    object-independent frame work (`Estimator._scene_prep`) runs once, and
+    every object searches that one scene. Object 0's result is bitwise the
+    per-scene path's fed O copies of the frame with the same seeds.
+
+    The objects live on one device, the first object's (`device="cuda"` is
+    `ObjectModel`'s default); step() puts its inputs there."""
+
+    def __init__(
+        self,
+        objects: Sequence[ObjectModel],
+        hand: HandModel | None,
+        cfg: EstimatorConfig = EstimatorConfig(),
+        mesh=None,
+        axis_name: str = "obj",
+        particle_axis: str | None = None,
+        nn_fn=None,
+        shared_scene: bool = False,
+    ):
+        if not objects:
+            raise ValueError("need at least one object")
+        if mesh is not None or particle_axis is not None:
+            raise NotImplementedError(
+                "sharding the object or particle axis over several devices "
+                "(mesh=, particle_axis=) is not ported yet: see ROADMAP.md, "
+                "'Still to port'")
+        shapes = {
+            (tuple(o.model_pts.shape), tuple(o.render_pts.shape)) for o in objects
+        }
+        if len(shapes) != 1:
+            raise ValueError(
+                "objects must share model/render point counts; build them "
+                "with the same ObjectModel(model_points=, render_points=)"
+            )
+        if len({o.device for o in objects}) != 1:
+            raise ValueError("objects must live on one device")
+        self.objects = list(objects)
+        self.n_objects = len(objects)
+        self.cfg = cfg
+        self.axis_name = axis_name
+        self.shared_scene = shared_scene
+        H = cfg.tracker.n_hypotheses
+        if H > 1:
+            for name, count in (("pso.particles", cfg.pso.particles),
+                                ("tracker.reinit_particles",
+                                 cfg.tracker.reinit_particles)):
+                if count < 2 * H:
+                    raise ValueError(
+                        f"{H} hypotheses need at least {2 * H} particles per "
+                        f"shard; {name}={count}"
+                    )
+        # one estimator provides the frame program; the per-object tensors
+        # are passed to it stacked on a leading object axis
+        self._est = Estimator(objects[0], hand, cfg, nn_fn=nn_fn)
+        self.device = self._est.device
+        # symmetry groups identity-padded to the library's largest: the
+        # padding rows are duplicates that never win the branch snap
+        s_max = max(o.symmetries.shape[0] for o in objects)
+        eye = torch.eye(4, device=self.device)
+        self._obj_tensors = (
+            torch.stack([o.model_pts for o in objects]),
+            torch.stack([o.model_normals for o in objects]),
+            torch.stack([o.render_pts for o in objects]),
+            torch.stack([o.render_normals for o in objects]),
+            torch.stack([o.render_w for o in objects]),
+            torch.stack([
+                torch.cat([o.symmetries,
+                           eye.expand(s_max - o.symmetries.shape[0], 4, 4)])
+                for o in objects
+            ]),
+        )
+        self._diameters = np.asarray([o.diameter for o in objects], np.float64)
+
+    # -- the two programs ----------------------------------------------------
+
+    @torch.no_grad()
+    def _run(self, keys, depths, prev, hand_bases, hand_qs, mode: str) -> FrameResult:
+        """One program ('track' or 'init') over all O objects, with the
+        arguments `Estimator.frame_args` builds for `mode`. `keys` holds one
+        seed (or torch.Generator, or rng.Draws) per object; `prev` [O,4,4]
+        or [O,Hy,4,4]; every field of the result is [O,...]."""
+        cfg, est = self.cfg, self._est
+        tr = cfg.tracker
+        if mode == "track":
+            static = dict(
+                rot_sigma=cfg.pso.rot_sigma, trans_sigma=cfg.pso.trans_sigma,
+                roi_radius=np.maximum(1.5 * self._diameters,
+                                      3.0 * cfg.pso.trans_sigma),
+                n_particles=cfg.pso.particles, pso_iters=cfg.pso.iters,
+            )
+        elif mode == "init":
+            iters = 2 * cfg.pso.iters
+            static = dict(
+                rot_sigma=tr.reinit_rot_sigma, trans_sigma=tr.reinit_trans_sigma,
+                roi_radius=float("inf"),
+                n_particles=tr.reinit_particles, pso_iters=iters,
+                resample_after=iters // 2, prescreen=tr.reinit_prescreen,
+                init_scoring=True,
+            )
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+        init = mode == "init"
+        gens = rng.Stack([_generator(k, self.device) for k in keys])
+        depths, prev = est._tensor(depths), est._tensor(prev)
+        hand_bases, hand_qs = est._tensor(hand_bases), est._tensor(hand_qs)
+        if self.shared_scene:
+            # one prep for all, on object 0's stream (the per-scene order)
+            preps = [est._scene_prep(gens.sources[0], depths, hand_bases,
+                                     hand_qs, init)]
+        else:
+            # object-independent work on O different images, frame by frame
+            preps = [est._scene_prep(g, depths[o], hand_bases[o], hand_qs[o], init)
+                     for o, g in enumerate(gens.sources)]
+        return est._search(
+            gens, est._stack_preps(preps),
+            prev if prev.dim() == 4 else prev[:, None],
+            self._obj_tensors, **static)
+
+    # -- public API ----------------------------------------------------------
+
+    def init_state(self, seed: int = 0) -> SweepState:
+        O, dev = self.n_objects, self.device
+        H = self.cfg.tracker.n_hypotheses
+        eye = torch.eye(4, device=dev)
+        return SweepState(
+            poses=eye.repeat(O, 1, 1),
+            fitness=torch.zeros((O,), device=dev),
+            initialized=torch.zeros((O,), dtype=torch.bool, device=dev),
+            key=int(seed),
+            frame_idx=0,
+            coverage=torch.ones((O,), device=dev),
+            hyp_poses=eye.repeat(O, H, 1, 1) if H > 1 else None,
+            hyp_fitness=(torch.full((O, H), -float("inf"), device=dev)
+                         if H > 1 else None),
+            prev_poses=eye.repeat(O, 1, 1),
+            vel_ok=torch.zeros((O,), dtype=torch.bool, device=dev),
+            pose_tracked=torch.zeros((O,), dtype=torch.bool, device=dev),
+        )
+
+    def _prep(self, state: SweepState):
+        """Per-frame glue, part 1: the frame's seeds, the watchdog mask
+        (`Tracker.step`'s predicate per object) and both programs' prior
+        stacks."""
+        tr = self.cfg.tracker
+        O, H = self.n_objects, tr.n_hypotheses
+        key, keys_track, keys_init = frame_seeds(state.key, O)
+        need_init = (~state.initialized) | (
+            state.fitness < tr.fitness_reinit_threshold)
+        if tr.coverage_reinit_threshold > 0.0 and state.coverage is not None:
+            need_init = need_init | (state.initialized & (
+                state.coverage < tr.coverage_reinit_threshold))
+        # tracked-mode prior: competing-basin hypotheses (H > 1) or the
+        # constant-velocity 2-prior stack (H == 1, motion_prior > 0)
+        alpha = tr.motion_prior
+        tiled = state.poses[:, None].repeat(1, H, 1, 1)
+        if H > 1 and state.hyp_poses is not None:
+            prev_t = torch.where(
+                torch.isfinite(state.hyp_fitness)[..., None, None],
+                state.hyp_poses, state.poses[:, None])
+        elif H == 1 and alpha > 0.0:
+            pp = state.prev_poses if state.prev_poses is not None else state.poses
+            delta = se3.compose(state.poses, se3.inverse(pp))
+            if alpha != 1.0:
+                delta = se3.se3_exp(alpha * se3.se3_log(delta))
+            vel_ok = (state.vel_ok if state.vel_ok is not None
+                      else torch.zeros((O,), dtype=torch.bool, device=self.device))
+            delta = torch.where(vel_ok[:, None, None], delta,
+                                torch.eye(4, dtype=delta.dtype, device=self.device))
+            predicted = se3.compose(delta, state.poses)
+            prev_t = torch.stack([predicted, state.poses], dim=1)   # [O,2,4,4]
+        else:
+            prev_t = state.poses if H == 1 else tiled
+        prev_i = state.poses if H == 1 else tiled
+        return key, keys_track, keys_init, prev_t, prev_i, need_init
+
+    def _finish(self, mode: str, state: SweepState, key, need_init,
+                out_t: FrameResult | None, out_i: FrameResult | None):
+        """Per-frame glue, part 2: merge the track and init results by the
+        watchdog mask and build the next state. `mode` is 'track', 'init'
+        or 'both' (a mixed frame)."""
+        O = self.n_objects
+        H = self.cfg.tracker.n_hypotheses
+        m = need_init
+        if mode == "init":
+            pose, fitness, coverage = out_i.pose, out_i.fitness, out_i.coverage
+            hyp_p, hyp_f = out_i.hyp_poses, out_i.hyp_fitness
+        elif mode == "track":
+            pose, fitness, coverage = out_t.pose, out_t.fitness, out_t.coverage
+            hyp_p, hyp_f = out_t.hyp_poses, out_t.hyp_fitness
+        else:
+            def sel(a, b):
+                return torch.where(m.reshape((O,) + (1,) * (a.dim() - 1)), a, b)
+
+            pose = sel(out_i.pose, out_t.pose)
+            fitness = sel(out_i.fitness, out_t.fitness)
+            coverage = sel(out_i.coverage, out_t.coverage)
+            if H > 1:
+                hyp_p = sel(out_i.hyp_poses, out_t.hyp_poses)
+                hyp_f = sel(out_i.hyp_fitness, out_t.hyp_fitness)
+            else:  # shapes can differ (motion-prior 2-stack); unused anyway
+                hyp_p, hyp_f = out_t.hyp_poses, out_t.hyp_fitness
+        tracked = ~m
+        was_tracked = (state.pose_tracked if state.pose_tracked is not None
+                       else torch.zeros((O,), dtype=torch.bool, device=self.device))
+        new_state = SweepState(
+            poses=pose,
+            fitness=fitness,
+            initialized=torch.ones((O,), dtype=torch.bool, device=self.device),
+            key=key,
+            frame_idx=int(state.frame_idx) + 1,
+            coverage=coverage,
+            hyp_poses=hyp_p if H > 1 else None,
+            hyp_fitness=hyp_f if H > 1 else None,
+            # a velocity needs two tracked poses in a row: an init pose's
+            # residual folded into it would extrapolate the error
+            prev_poses=state.poses,
+            vel_ok=tracked & was_tracked,
+            pose_tracked=tracked,
+        )
+        return new_state, SweepResult(
+            poses=pose, fitness=fitness, coverage=coverage, reinitialized=m,
+            hyp_poses=hyp_p if H > 1 else None,
+            hyp_fitness=hyp_f if H > 1 else None,
+        )
+
+    def step(
+        self,
+        state: SweepState,
+        depths,             # [O,H,W] meters; shared_scene: [H,W]
+        hand_bases=None,    # [O,4,4]; shared: [4,4]
+        hand_qs=None,       # [O,J]; shared: [J]
+    ) -> tuple[SweepState, SweepResult]:
+        """One frame for every object in the library. Inputs may be numpy
+        arrays or tensors."""
+        O, est = self.n_objects, self._est
+        cam = self.cfg.camera
+        J = est.hand.n_joints if est.hand is not None else 1
+        depths = est._tensor(depths)
+        if self.shared_scene:
+            if depths.dim() != 2:
+                raise ValueError(
+                    f"shared_scene takes ONE frame [H,W], got {tuple(depths.shape)}")
+            lead = ()
+        else:
+            if depths.dim() != 3 or depths.shape[0] != O:
+                raise ValueError(
+                    f"per-scene sweep takes [O,H,W] depths (O={O}), got "
+                    f"{tuple(depths.shape)}; use shared_scene=True for one frame")
+            lead = (O,)
+        if tuple(depths.shape[-2:]) != (cam.height, cam.width):
+            raise ValueError(
+                f"depth shape {tuple(depths.shape[-2:])} != camera "
+                f"({cam.height}, {cam.width}); fix CameraIntrinsics")
+        if hand_bases is None:
+            hand_bases = torch.eye(4, device=self.device).expand(lead + (4, 4))
+        if hand_qs is None:
+            hand_qs = torch.zeros(lead + (J,), device=self.device)
+        key, keys_track, keys_init, prev_t, prev_i, need_init = self._prep(state)
+        # the one host read per frame: the two programs have different swarm
+        # shapes, so the mask picks on the host which of them run
+        ni = need_init.cpu().numpy()
+        out_t = None if ni.all() else self._run(
+            keys_track, depths, prev_t, hand_bases, hand_qs, "track")
+        out_i = None if not ni.any() else self._run(
+            keys_init, depths, prev_i, hand_bases, hand_qs, "init")
+        mode = ("both" if (out_t is not None and out_i is not None)
+                else "track" if out_t is not None else "init")
+        return self._finish(mode, state, key, need_init, out_t, out_i)
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def save_state(self, state: SweepState, path: str) -> None:
+        """Write `state` to `path` (.npz, the reference's field names;
+        `key` is this package's integer key)."""
+        extra = {}
+        for name in ("coverage", "hyp_poses", "hyp_fitness", "prev_poses",
+                     "vel_ok", "pose_tracked"):
+            v = getattr(state, name)
+            if v is not None:
+                extra[name] = v.cpu().numpy()
+        np.savez(
+            _ckpt_path(path),
+            poses=state.poses.cpu().numpy(),
+            fitness=state.fitness.cpu().numpy(),
+            initialized=state.initialized.cpu().numpy(),
+            key=np.asarray(state.key, np.uint64),
+            frame_idx=np.asarray(state.frame_idx, np.int32),
+            **extra,
+        )
+
+    def load_state(self, path: str, seed: int = 0) -> SweepState:
+        """The state `save_state` wrote, on the sweep's device. A file of
+        the JAX package loads too: its threefry key means nothing here, so
+        the key is re-derived from `seed` and the frame index
+        (convert.sweep_state_from_numpy)."""
+        from ..convert import sweep_state_from_numpy
+
+        return sweep_state_from_numpy(_ckpt_path(path), seed=seed,
+                                      device=self.device)

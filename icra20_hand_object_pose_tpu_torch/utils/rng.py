@@ -4,7 +4,11 @@ The JAX package splits `jax.random` keys; the port draws from a
 `torch.Generator`. The two never give the same numbers, so every sampling
 site takes `gen`, which is either a `torch.Generator` or a `Draws` holding
 injected arrays (a test hands the JAX package's own draws to the port, in
-the order the port consumes them).
+the order the port consumes them), or a `Stack` of one such source per
+object of a library: a request of `shape` then comes back as the objects'
+draws stacked on a leading object axis, `(O,) + shape`, object o's from
+source o alone. Object o of a library therefore sees the stream that a
+single-object frame sees from the same seed.
 """
 from __future__ import annotations
 
@@ -32,24 +36,49 @@ class Draws:
         return len(self._queue)
 
 
+class Stack:
+    """One random source (torch.Generator or Draws) per object."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+        if not self.sources:
+            raise ValueError("a Stack needs at least one source")
+        self.device = self.sources[0].device
+
+    def __len__(self) -> int:
+        return len(self.sources)
+
+
+def _stacked(draw, gen: Stack, *args) -> torch.Tensor:
+    return torch.stack([draw(g, *args) for g in gen.sources])
+
+
 def normal(gen, shape: tuple) -> torch.Tensor:
-    """Standard normal float32 draws of `shape`."""
+    """Standard normal float32 draws of `shape` ((O,) + shape from a
+    Stack)."""
     shape = tuple(shape)
+    if isinstance(gen, Stack):
+        return _stacked(normal, gen, shape)
     if isinstance(gen, Draws):
         return gen.take(shape, torch.float32)
     return torch.randn(shape, generator=gen, device=gen.device)
 
 
 def uniform(gen, shape: tuple) -> torch.Tensor:
-    """Uniform [0, 1) float32 draws of `shape`."""
+    """Uniform [0, 1) float32 draws of `shape` ((O,) + shape from a
+    Stack)."""
     shape = tuple(shape)
+    if isinstance(gen, Stack):
+        return _stacked(uniform, gen, shape)
     if isinstance(gen, Draws):
         return gen.take(shape, torch.float32)
     return torch.rand(shape, generator=gen, device=gen.device)
 
 
 def permutation(gen, n: int) -> torch.Tensor:
-    """A random permutation of range(n), int64."""
+    """A random permutation of range(n), int64 ([O, n] from a Stack)."""
+    if isinstance(gen, Stack):
+        return _stacked(permutation, gen, n)
     if isinstance(gen, Draws):
         return gen.take((n,), torch.int64)
     return torch.randperm(n, generator=gen, device=gen.device)

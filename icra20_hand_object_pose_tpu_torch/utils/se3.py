@@ -290,7 +290,8 @@ def random_rotation(gen, shape=()) -> torch.Tensor:
 def super_fibonacci_rotations(n: int, gen=None, *, device=None) -> torch.Tensor:
     """n near-optimally-spread SO(3) rotations (super-Fibonacci spirals,
     Alexa CVPR'22). With `gen`, the whole grid is offset by one random
-    rotation (one uniform draw of shape (3,))."""
+    rotation (one uniform draw of shape (3,)); from an rng.Stack of O
+    sources, one offset per object: [O,n,3,3]."""
     if gen is not None:
         device = gen.device
     i = torch.arange(n, dtype=torch.float32, device=device) + 0.5
@@ -307,7 +308,7 @@ def super_fibonacci_rotations(n: int, gen=None, *, device=None) -> torch.Tensor:
     )
     rot = quat_to_matrix(q)
     if gen is not None:
-        rot = random_rotation(gen)[None] @ rot
+        rot = random_rotation(gen)[..., None, :, :] @ rot
     return rot
 
 
@@ -321,12 +322,14 @@ def perturb_pose(
     """Sample poses around T: Gaussian twists whose rotation acts about T's
     own translation. Draws, in order: the rotation normals, then the
     translation normals, each of shape + (3,). rot_sigma in radians,
-    trans_sigma in meters."""
+    trans_sigma in meters. From an rng.Stack of O sources the draws, and
+    the result, carry a leading object axis: T is then [O, ..., 4, 4]
+    (broadcast against shape) and a sigma a float or [O, 1, ...]."""
     shape = tuple(shape)
     w = rng.normal(gen, shape + (3,)) * rot_sigma
     v = rng.normal(gen, shape + (3,)) * trans_sigma
     xi = torch.cat([w, v], dim=-1)
-    Tb = T.expand(shape + (4, 4))
+    Tb = T.expand(tuple(xi.shape[:-1]) + (4, 4))
     return apply_twist_about(xi, Tb, translation(Tb))
 
 

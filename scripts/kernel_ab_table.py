@@ -19,7 +19,7 @@ import sys
 from pathlib import Path
 
 LINE = re.compile(
-    r"^(K\d) P=(\d+) (?:Pq=(\d+) )?Ns=(\d+) Nm=(\d+) .*?: device ([\d.]+) ms/launch "
+    r"^(K\d) P=(\d+) (?:(?:Pq|G)=(\d+) )?Ns=(\d+) Nm=(\d+) .*?: device ([\d.]+) ms/launch "
     r"\((\d+) kernel\(s\)/call\), call incl\. host issue ([\d.]+) ms, host ([\d.]+) "
     r"us/call, plain ([\d.]+) ms, bound ([\d.]+) ms \((\w+)\), exact-form floor ([\d.]+) ms")
 

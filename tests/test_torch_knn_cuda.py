@@ -11,7 +11,8 @@ that a block's thread groups split the reference cloud into (the same
 point at j and j + Nm/2: the lower index must win), Nm = 1, Nm that no
 split divides, Ns that is no multiple of the query tile, reference ranges
 larger than one shared-memory tile, and for K3 a scene larger than one
-launch covers at once.
+launch covers at once; and the grouped form, a query (scene) per group of
+particles, at a library sweep's shapes (8 objects) and at ragged ones.
 - K3: H, g and wrr within rtol 1e-4 plus an atol of 1e-5 x the largest |H|
   entry of that particle (the sums run in other orders); wsum and hits
   within 1e-5 relative.
@@ -69,6 +70,11 @@ NN_CASES = [
     (1, 4, 300, 1, False, None), (1, 4, 300, 257, True, _plan(1, 2)),
     (1, 3, 777, 100, True, _plan(4, 4)), (2, 2, 1000, 3000, True, _plan(2, 2)),
     (1, 1, 64, 4099, True, _plan(1, 4)), (1, 5, 333, 1000, True, _plan(2, 3, 1, 64)),
+    # a query per group of particles: the sweep's scans, explorers and polish
+    (8, 4096, 512, 256, False, None), (8, 256, 512, 256, False, None),
+    (8, 144, 2048, 1024, True, None), (8, 8192, 512, 512, False, None),
+    (3, 12, 37, 73, True, None), (2, 6, 300, 257, True, _plan(1, 2)),
+    (4, 8, 777, 1100, True, _plan(4, 4)),
 ]
 
 
@@ -78,12 +84,12 @@ def test_cuda_kernel_matches_plain(cuda_device, Pq, P, Ns, Nm, ties, plan):
     q, r, n = (torch.tensor(a, device=cuda_device)
                for a in _clouds(Pq, P, Ns, Nm, ties=ties))
     before = knn_cuda.nn_gather_batched.launches
-    before_shape = knn_cuda.nn_gather_batched.shapes[(P, Ns, Nm)]
+    before_shape = knn_cuda.nn_gather_batched.shapes[(P, Pq, Ns, Nm)]
     m, nm, d2, idx = knn_cuda.nn_gather_batched(q, r, n, plan=plan)
     mp, nmp, d2p, idxp = knn_cuda.nn_gather_plain(q, r, n)
     torch.cuda.synchronize()
     assert knn_cuda.nn_gather_batched.launches == before + 1
-    assert knn_cuda.nn_gather_batched.shapes[(P, Ns, Nm)] == before_shape + 1
+    assert knn_cuda.nn_gather_batched.shapes[(P, Pq, Ns, Nm)] == before_shape + 1
     assert torch.equal(idx, idxp) and torch.equal(d2, d2p)
     assert torch.equal(m, mp) and torch.equal(nm, nmp)
 
@@ -113,14 +119,20 @@ def test_cuda_nn_kernel_matches_plain(cuda_device, Pq, P, Ns, Nm, ties, plan):
     assert torch.equal(idx, idxp) and torch.equal(d2, d2p)
 
 
-def _gn_inputs(P, Ns, Nm, seed=1, ties=False):
+def _gn_inputs(P, Ns, Nm, seed=1, ties=False, G=None):
+    """K3's inputs; with G the scene, its normals and weights get a leading
+    group axis [G,Ns,...] and the last group is left nearly empty (under 6
+    points of weight: its particles must freeze, and only they)."""
     g = np.random.default_rng(seed)
-    scene = g.uniform(-0.05, 0.05, (Ns, 3)).astype(np.float32)
-    snrm = g.normal(size=(Ns, 3)).astype(np.float32)
+    lead = () if G is None else (G,)
+    scene = g.uniform(-0.05, 0.05, lead + (Ns, 3)).astype(np.float32)
+    snrm = g.normal(size=lead + (Ns, 3)).astype(np.float32)
     snrm /= np.linalg.norm(snrm, axis=-1, keepdims=True)
-    snrm[::11] = 0.0
-    w = (g.random(Ns) > 0.1).astype(np.float32)
-    scene[::13], w[::13] = 1e6, 0.0                   # padding rows
+    snrm[..., ::11, :] = 0.0
+    w = (g.random(lead + (Ns,)) > 0.1).astype(np.float32)
+    scene[..., ::13, :], w[..., ::13] = 1e6, 0.0      # padding rows
+    if G is not None and G > 1:
+        w[-1, 5:] = 0.0
     ref = g.uniform(-0.05, 0.05, (P, Nm, 3)).astype(np.float32)
     if ties:
         _ties(ref)
@@ -130,14 +142,19 @@ def _gn_inputs(P, Ns, Nm, seed=1, ties=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,Ns,Nm,ties,plan", [
-    (512, 512, 256, False, None), (32, 512, 256, False, None),
-    (1024, 512, 512, False, None), (3, 90, 130, False, None),
-    (32, 512, 256, True, None), (3, 4096, 256, False, None),
-    (5, 1000, 700, True, _plan(4, 1)), (2, 300, 2100, False, _plan(1, 2, 3)),
+@pytest.mark.parametrize("P,Ns,Nm,ties,plan,G", [
+    (512, 512, 256, False, None, None), (32, 512, 256, False, None, None),
+    (1024, 512, 512, False, None, None), (3, 90, 130, False, None, None),
+    (32, 512, 256, True, None, None), (3, 4096, 256, False, None, None),
+    (5, 1000, 700, True, _plan(4, 1), None), (2, 300, 2100, False, _plan(1, 2, 3), None),
+    # a scene per group of particles: the sweep's scans and explorer pulls
+    (4096, 512, 256, False, None, 8), (256, 512, 256, True, None, 8),
+    (8192, 512, 512, False, None, 8), (12, 90, 130, True, None, 3),
+    (6, 1000, 300, True, _plan(1, 2, 3), 2), (5, 90, 130, False, None, 5),
 ])
-def test_cuda_gn_kernel_matches_plain(cuda_device, P, Ns, Nm, ties, plan):
-    args = [torch.tensor(a, device=cuda_device) for a in _gn_inputs(P, Ns, Nm, ties=ties)]
+def test_cuda_gn_kernel_matches_plain(cuda_device, P, Ns, Nm, ties, plan, G):
+    args = [torch.tensor(a, device=cuda_device)
+            for a in _gn_inputs(P, Ns, Nm, ties=ties, G=G)]
     gates = dict(maxd2=0.02 ** 2, min_cos=math.cos(math.radians(60.0)),
                  tau2=0.01 ** 2)
     before = knn_cuda.nn_gn_batched.launches
@@ -154,6 +171,20 @@ def test_cuda_gn_kernel_matches_plain(cuda_device, P, Ns, Nm, ties, plan):
     # bitwise reproducible: every sum runs in a fixed order
     again = knn_cuda.nn_gn_batched(*args, **gates, plan=plan)
     assert all(torch.equal(x, y) for x, y in zip(again, (H, g, wsum, hits, wrr)))
+    if G is not None and G > 1:
+        # a group's sums hold its own scene only: the nearly empty last
+        # group stays at 5 points of weight or under, and each group alone
+        # (an ungrouped launch on its particles) gives the same bits
+        per = P // G
+        assert bool((wsum[-per:] <= 5.0).all())
+        for o in range(G):
+            sl = slice(o * per, (o + 1) * per)
+            alone = knn_cuda.nn_gn_batched(
+                args[0][o], args[1][o], args[2][o], args[3][sl].contiguous(),
+                args[4][sl].contiguous(), **gates,
+                plan=plan or knn_cuda.gn_plan(P, Ns, Nm))
+            assert all(torch.equal(x[sl], y)
+                       for x, y in zip((H, g, wsum, hits, wrr), alone))
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
