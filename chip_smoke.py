@@ -7,6 +7,8 @@
                                            # a checkout from before them)
     python3 chip_smoke.py --sweep          # build + every launch plan, timed
     python3 chip_smoke.py --library-only   # build + kernel phases + phases 10-12
+    python3 chip_smoke.py --bench-only     # build + kernel phases + phase 13, then
+                                           # scripts/profile_phases_torch.py
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -23,7 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
        512, polish: 17 x 2048 x 1024), shared and per-particle queries,
        plus a ragged case; at the same places of a library sweep of 8
        objects (8x the particles, one query per object and one shared by
-       all); then the tie cases (every reference point duplicated across
+       all), and at the in-scan and explorer shapes of the benchmark's
+       library of 8 x 128 particles (1024 and 64 x 512 x 256, a query per
+       object); then the tie cases (every reference point duplicated across
        the ranges a block's thread groups split the cloud into), ungrouped
        and grouped: the same indices, d2 bitwise equal, matched points and
        normals bitwise equal (the plain version of a shape above 2^27
@@ -102,7 +106,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal; `cli sweep` in-process on two recorded sequences (box and
      cylinder, 3 frames, VGA, the default configuration), its files read
      back;
-  13. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  13. bench: `benchmarks.main()` (BASELINE config 3: the frame program's
+     ms/frame and hypotheses/s, `Tracker.step` ms/frame, one profiled frame)
+     and `benchmarks.bench_sweep()` (8 objects x 128 particles) in-process:
+     each prints exactly one JSON line with its keys, every number in it
+     finite and > 0; printed beside phase 4's frame; every launch at a
+     checked shape;
+  14. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+
+Every phase prints its seconds.
 
 Each path phase sets every launch count to 0 just before it and reads the
 counts just after; the JSON line's `launches` are those of the path that
@@ -147,8 +159,11 @@ NN_SHAPES = [(512, 512, 256), (32, 512, 256), (18, 2048, 1024),
 # shared-scene mode); and a ragged case (P, Pq, Ns, Nm)
 LIB = 8
 LIB_SHAPES = [(LIB * P, Ns, Nm) for P, Ns, Nm in NN_SHAPES[:5]]
+# and the in-scan ICP and the explorer (8 seeds an object) of the benchmark's
+# library of LIB x 128 particles (`benchmarks.bench_sweep`'s default)
+BENCH_SWEEP_SHAPES = [(LIB * 128, LIB, 512, 256), (LIB * 8, LIB, 512, 256)]
 NN_GROUPED = ([(P, Pq, Ns, Nm) for P, Ns, Nm in LIB_SHAPES for Pq in (1, LIB)]
-              + [(12, 3, 37, 73)])
+              + BENCH_SWEEP_SHAPES + [(12, 3, 37, 73)])
 # tie cases, checked only (P, Pq, Ns, Nm): the polish shape and the ragged
 # one with every reference point duplicated across the split ranges (see
 # `_ties`), with a shared query and with one per group
@@ -175,6 +190,15 @@ PEAK_BYTES = 3.35e12
 # `cli demo` of the sequence phase: VGA, 512 particles, everything else the
 # command's and EstimatorConfig's defaults
 DEMO = dict(frames=8, width=640, height=480, particles=512)
+# the bench phase's JSON lines: the keys each must hold
+BENCH_KEYS = {
+    "main": {"metric", "value", "unit", "vs_baseline", "ms_per_frame",
+             "e2e_tracker_ms_per_frame", "full_refine_equiv_per_sec",
+             "device_ms_per_frame", "idle_share", "aten_calls_per_frame",
+             "device", "power_limit_w"},
+    "bench_sweep": {"metric", "value", "unit", "vs_baseline", "hyp_per_sec_chip",
+                    "ms_per_object_frame", "device", "power_limit_w"},
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -623,23 +647,17 @@ def timed_step(tracker, fr, pose_gt, dense, label: str, profiled: bool = False):
     """One Tracker.step on `fr` (.depth, .hand_base, .hand_q), timed to the
     pose on the host (under torch.profiler when `profiled`); returns
     (result, ms, ADD-S mm against pose_gt)."""
-    import contextlib
-
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from icra20_hand_object_pose_tpu_torch import evaluation
 
-    torch.cuda.synchronize()
-    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-          if profiled else contextlib.nullcontext()) as prof:
-        t0 = time.perf_counter()
+    def run():
         res = tracker.step(fr.depth, fr.hand_base, fr.hand_q)
-        pose = res.pose.cpu().numpy()
-        ms = 1000.0 * (time.perf_counter() - t0)
+        return res, res.pose.cpu().numpy()
+
+    (res, pose), ms, prof = timed_call(run, tracker.est.device, profiled)
     if profiled:
-        timed_step.last_profile = report_profile(prof, ms)
+        timed_step.last_profile = prof
     check(pose.shape == (4, 4) and bool(np.isfinite(pose).all()),
           f"{label}: pose not finite")
     adds = 1000.0 * evaluation.add_s_error(pose, pose_gt, dense)
@@ -707,23 +725,32 @@ def track_phase(sc: Scene, knn_cuda) -> tuple[int, dict]:
     return n["K1"], dict(timed_step.last_profile, frame_ms=steady)
 
 
-def report_profile(prof, wall_ms: float) -> dict:
-    """Device kernel time against the frame's wall time gives the card's
-    idle share; then the operators that take the most device time. Returns
-    the wall and device ms and the ATen operator calls."""
-    from torch.autograd import DeviceType
+def timed_call(fn, dev, profiled: bool = False):
+    """fn() timed on the host clock to the end of its device work, under
+    torch.profiler when `profiled` (utils/profiling.profile_counts: device
+    kernel time against the wall time gives the card's idle share, then the
+    operators that take the most device time are printed). Returns (fn's
+    result, wall ms, the profile's wall and device ms and ATen operator
+    calls, or None)."""
+    import torch
 
-    events = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)) / 1000.0
-    n_ops = sum(e.count for e in events if e.key.startswith("aten::"))
+    from icra20_hand_object_pose_tpu_torch.utils.profiling import profile_counts
+
+    if not profiled:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, 1000.0 * (time.perf_counter() - t0), None
+    prof = profile_counts(fn, device=dev)
+    wall_ms, busy_ms, n_ops = prof["wall_ms"], prof["device_ms"], prof["aten_calls"]
     print(f"profiled frame: {wall_ms:.2f} ms wall, {busy_ms:.3f} ms device "
           f"kernels ({100.0 * (1.0 - busy_ms / wall_ms):.1f}% idle), "
           f"{n_ops} aten operator calls", flush=True)
-    print(events.table(sort_by="self_device_time_total", row_limit=15),
+    print(prof["events"].table(sort_by="self_device_time_total", row_limit=15),
           flush=True)
-    return dict(wall_ms=wall_ms, device_ms=busy_ms, aten_calls=n_ops)
+    return prof["result"], wall_ms, dict(wall_ms=wall_ms, device_ms=busy_ms,
+                                         aten_calls=n_ops)
 
 
 def cold_start_phase(sc: Scene, knn_cuda) -> int:
@@ -1044,24 +1071,18 @@ class Library:
         """One LibrarySweep.step on the static frames, timed to the poses on
         the host (under torch.profiler when `profiled`); returns (state,
         result, ms, ADD-S mm per object, the profile's numbers or None)."""
-        import contextlib
-
         import numpy as np
-        import torch
-        from torch.profiler import ProfilerActivity, profile
 
         from icra20_hand_object_pose_tpu_torch import evaluation
 
         args = ((self.depths[0], self.hand_bases[0], self.hand_qs[0]) if shared
                 else (self.depths, self.hand_bases, self.hand_qs))
-        torch.cuda.synchronize()
-        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-              if profiled else contextlib.nullcontext()) as prof:
-            t0 = time.perf_counter()
-            st, res = sweep.step(st, *args)
-            poses = res.poses.cpu().numpy()
-            ms = 1000.0 * (time.perf_counter() - t0)
-        prof_numbers = report_profile(prof, ms) if profiled else None
+
+        def run():
+            st1, res = sweep.step(st, *args)
+            return st1, res, res.poses.cpu().numpy()
+
+        (st, res, poses), ms, prof_numbers = timed_call(run, self.dev, profiled)
         check(poses.shape == (LIB, 4, 4) and bool(np.isfinite(poses).all()),
               f"{label}: poses not finite")
         adds = [1000.0 * evaluation.add_s_error(poses[o], self.sc.pose_gt, self.dense[o])
@@ -1089,9 +1110,9 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
     and the 8-frame `_scene_prep` loop alone under torch.profiler. Returns
     the library (for the next phases) and K1's launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from icra20_hand_object_pose_tpu_torch.models.estimator import _generator
+    from icra20_hand_object_pose_tpu_torch.utils.profiling import profile_counts
 
     lib = Library(sc, dev, ["box", "cylinder", "sphere", "ellipsoid"])
     sweep = lib.sweep()
@@ -1146,17 +1167,16 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
     # the per-frame scene prep loop of a tracked step, alone
     est = sweep._est
     gens = [_generator(o, dev) for o in range(LIB)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            for o in range(LIB):
-                est._scene_prep(gens[o], est._tensor(lib.depths[o]),
-                                est._tensor(lib.hand_bases[o]),
-                                est._tensor(lib.hand_qs[o]), False)
-        torch.cuda.synchronize()
-        prep_ms = 1000.0 * (time.perf_counter() - t0)
-    prep_ops = sum(e.count for e in pr.key_averages() if e.key.startswith("aten::"))
+
+    @torch.no_grad()
+    def prep_loop():
+        for o in range(LIB):
+            est._scene_prep(gens[o], est._tensor(lib.depths[o]),
+                            est._tensor(lib.hand_bases[o]),
+                            est._tensor(lib.hand_qs[o]), False)
+
+    pr = profile_counts(prep_loop, device=dev)
+    prep_ms, prep_ops = pr["wall_ms"], pr["aten_calls"]
     print(f"scene prep loop alone ({LIB} frames, profiled): {prep_ms:.2f} ms, "
           f"{prep_ops} ATen calls = {100.0 * prep_ms / prof['wall_ms']:.1f}% of the "
           f"profiled step's wall time, {100.0 * prep_ops / prof['aten_calls']:.1f}% "
@@ -1278,6 +1298,73 @@ def library_kernels_phase(lb: dict, sc: Scene, knn_cuda, dev, work: str) -> dict
     return launches
 
 
+def bench_line(knn_cuda, name: str, fn) -> dict:
+    """fn() in-process with its standard output captured: exactly one JSON
+    line with the keys BENCH_KEYS[name] names, every number in it finite and
+    > 0, K1 launched and every launch at a checked shape. Prints the line
+    and returns it, parsed."""
+    import contextlib
+    import io
+    import math
+
+    out = io.StringIO()
+    reset_counts(knn_cuda)
+    with contextlib.redirect_stdout(out):
+        fn()
+    lines = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+    check(len(lines) == 1, f"bench {name} printed {len(lines)} lines: {lines}")
+    print(f"bench {name}: {lines[0]}", flush=True)
+    rec = json.loads(lines[0])
+    check(isinstance(rec, dict) and set(rec) == BENCH_KEYS[name],
+          f"bench {name} keys {sorted(rec)}")
+    bad = {k: v for k, v in rec.items() if isinstance(v, (int, float))
+           and not (math.isfinite(v) and v > 0)}
+    check(not bad and all(v is not None for v in rec.values()),
+          f"bench {name}: a number not finite and > 0, or missing: {rec}")
+    check(counts(knn_cuda)["K1"] > 0, f"bench {name} never launched K1")
+    check_shapes(knn_cuda, f"bench {name}")
+    return rec
+
+
+def bench_phase(knn_cuda, dev, single: dict | None) -> None:
+    """Phase 13: the benchmark's headline and its default library sweep, as
+    `bench_torch.py` runs them, beside the same run's phase 4 frame."""
+    from icra20_hand_object_pose_tpu_torch import benchmarks
+
+    head = bench_line(knn_cuda, "main", lambda: benchmarks.main(device=dev))
+    sweep = bench_line(knn_cuda, "bench_sweep",
+                       lambda: benchmarks.bench_sweep(device=dev))
+    beside = (f"; phase 4's Tracker.step {single['frame_ms']:.2f} ms/frame, "
+              f"profiled {single['device_ms']:.3f} ms device, "
+              f"{single['aten_calls']} ATen calls" if single else "")
+    print(f"bench: frame program {head['ms_per_frame']} ms/frame, "
+          f"Tracker.step {head['e2e_tracker_ms_per_frame']} ms/frame, "
+          f"{head['value']} hypotheses/s, profiled frame "
+          f"{head['device_ms_per_frame']} ms device, idle {head['idle_share']}, "
+          f"{head['aten_calls_per_frame']} ATen calls{beside}; library 8 x 128: "
+          f"{sweep['ms_per_object_frame']} ms per object-frame", flush=True)
+
+
+def profile_phases(dev) -> None:
+    """scripts/profile_phases_torch.py's main on the card."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "profile_phases_torch.py")
+    spec = importlib.util.spec_from_file_location("profile_phases_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(device=dev)
+
+
+def run_phase(name: str, fn, *args):
+    """fn(*args), with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1308,32 +1395,40 @@ def main(argv: list[str]) -> int:
         print(smi, flush=True)
         return 0
     grouped = "--ungrouped" not in argv
-    stats = {"K1": nn_phase(knn_cuda, dev, gather=True, grouped=grouped),
-             "K2": nn_phase(knn_cuda, dev, gather=False, grouped=grouped),
-             "K3": k3_phase(knn_cuda, dev, grouped=grouped)}
+    stats = {"K1": run_phase("3 K1", nn_phase, knn_cuda, dev, True, grouped),
+             "K2": run_phase("3 K2", nn_phase, knn_cuda, dev, False, grouped),
+             "K3": run_phase("3 K3", k3_phase, knn_cuda, dev, grouped)}
     if "--kernels-only" in argv:
+        print(smi, flush=True)
+        return 0
+    if "--bench-only" in argv:
+        run_phase("13 bench", bench_phase, knn_cuda, dev, None)
+        run_phase("profile_phases_torch", profile_phases, dev)
         print(smi, flush=True)
         return 0
     sc = Scene(dev)
     if "--library-only" in argv:
         with tempfile.TemporaryDirectory() as work:
-            lb = library_phase(sc, knn_cuda, dev, None)
-            shared_phase(sc, knn_cuda, dev)
-            library_kernels_phase(lb, sc, knn_cuda, dev, work)
+            lb = run_phase("10 library", library_phase, sc, knn_cuda, dev, None)
+            run_phase("11 shared scene", shared_phase, sc, knn_cuda, dev)
+            run_phase("12 library kernels", library_kernels_phase, lb, sc, knn_cuda,
+                      dev, work)
         print(smi, flush=True)
         return 0
-    k1, single = track_phase(sc, knn_cuda)
+    k1, single = run_phase("4 track", track_phase, sc, knn_cuda)
     launches = {"K1": k1,
-                "K3": cold_start_phase(sc, knn_cuda),
-                "K2": nn_fn_phase(sc, knn_cuda)}
+                "K3": run_phase("5 cold start", cold_start_phase, sc, knn_cuda),
+                "K2": run_phase("6 nn_fn", nn_fn_phase, sc, knn_cuda)}
     with tempfile.TemporaryDirectory() as work:
-        sq = sequence_phase(knn_cuda, dev, work)
-        checkpoint_phase(sq, knn_cuda, dev, work)
-        pixel_phase(sq, knn_cuda, dev)
-        lb = library_phase(sc, knn_cuda, dev, single)
-        shared_phase(sc, knn_cuda, dev)
-        lib_launches = dict(library_kernels_phase(lb, sc, knn_cuda, dev, work),
+        sq = run_phase("7 sequence", sequence_phase, knn_cuda, dev, work)
+        run_phase("8 checkpoint", checkpoint_phase, sq, knn_cuda, dev, work)
+        run_phase("9 pixel mode", pixel_phase, sq, knn_cuda, dev)
+        lb = run_phase("10 library", library_phase, sc, knn_cuda, dev, single)
+        run_phase("11 shared scene", shared_phase, sc, knn_cuda, dev)
+        lib_launches = dict(run_phase("12 library kernels", library_kernels_phase,
+                                      lb, sc, knn_cuda, dev, work),
                             K1=lb["launches"])
+    run_phase("13 bench", bench_phase, knn_cuda, dev, single)
 
     names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)

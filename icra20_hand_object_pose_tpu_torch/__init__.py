@@ -8,8 +8,9 @@ datasets/, parallel/, cli, parity, visualize, evaluation) and runs a frame
 nearest-neighbour searches as hand-written CUDA kernels (ops/knn_cuda.py,
 csrc/). `parallel.LibrarySweep` tracks a library of objects as one batched
 program. `python -m icra20_hand_object_pose_tpu_torch.cli
-demo|track|eval|sweep` drives recorded sequences end to end. It imports
-torch, never jax.
+demo|track|eval|sweep` drives recorded sequences end to end; `benchmarks`
+(`cli bench`, the repo root's `bench_torch.py`) and `utils/profiling`
+measure it. It imports torch, never jax.
 """
 import torch
 

@@ -9,14 +9,16 @@ sequence and writes per-frame poses.
     python -m icra20_hand_object_pose_tpu_torch.cli sweep \
         --data <seq_dir_0> --object mesh_0.obj --data <seq_dir_1> --object mesh_1.obj \
         [--config cfg.yaml] --out out_sweep/
+    python -m icra20_hand_object_pose_tpu_torch.cli bench
 
 Outputs: per-frame 4x4 pose text files, a structured metrics.jsonl, and a
 summary table. `--device` picks where the models and frames live (default
 `cuda`; `cpu` for a machine without a card). `--profile DIR` wraps the run
 in a torch.profiler trace and writes it to DIR as a Chrome trace. `sweep`
 tracks a model library, one sequence per object, all objects stepped as one
-batched program (parallel.LibrarySweep). The reference's `bench` subcommand
-is not ported yet.
+batched program (parallel.LibrarySweep). `bench` prints the headline
+benchmark's JSON line (benchmarks.main; `bench_torch.py` at the repo root
+runs the other modes).
 """
 from __future__ import annotations
 
@@ -302,20 +304,20 @@ def cmd_sweep(args):
     return 0
 
 
+def cmd_bench(args):
+    from . import benchmarks
+
+    benchmarks.main(device=args.device)
+    return 0
+
+
 def _profiled(fn, args, out_dir: str):
     """Run fn(args) under torch.profiler (host, and the card when one is
     in use) and write a Chrome trace into out_dir."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from .utils.profiling import trace
 
-    os.makedirs(out_dir, exist_ok=True)
-    acts = [ProfilerActivity.CPU]
-    if torch.device(args.device).type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        rc = fn(args)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    return rc
+    with trace(out_dir, device=args.device):
+        return fn(args)
 
 
 def main(argv=None):
@@ -381,6 +383,10 @@ def main(argv=None):
                         "one device: no effect; several are not ported yet)")
     device_arg(p)
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("bench", help="run the headline benchmark")
+    device_arg(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     if args.profile:

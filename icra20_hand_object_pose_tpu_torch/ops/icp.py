@@ -52,16 +52,21 @@ def correspondence_weights(
     return w * torch.where(have_n, (ncos > min_normal_cos).to(w.dtype), 1.0)
 
 
-def cholesky_solve6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def cholesky_solve6(H: torch.Tensor, g: torch.Tensor,
+                    floor: torch.Tensor) -> torch.Tensor:
     """Solve H x = g for SPD H [...,6,6], g [...,6] with an unrolled 6x6
-    Cholesky; the pivot clamp keeps degenerate batches finite."""
+    Cholesky. A pivot at or below 1e-20 becomes `floor` [...]: the damping
+    that was added to H's diagonal, below which no pivot of the damped
+    system falls in exact arithmetic. FP32 rounding can leave a nearly
+    singular system indefinite; the reference's clamp of such a pivot to
+    1e-20 overflows the solve into inf - inf = NaN."""
     n = 6
     L = [[None] * n for _ in range(n)]
     for j in range(n):
         s = H[..., j, j]
         for k in range(j):
             s = s - L[j][k] * L[j][k]
-        L[j][j] = torch.sqrt(torch.clamp(s, min=1e-20))
+        L[j][j] = torch.sqrt(torch.where(s > 1e-20, s, floor))
         inv = 1.0 / L[j][j]
         for i in range(j + 1, n):
             s = H[..., i, j]
@@ -101,7 +106,7 @@ def solve_gn_step(
     tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
     lam = damping * (tr / 6.0 + 1e-12)
     H = H + lam[..., None, None] * torch.eye(6, dtype=H.dtype, device=H.device)
-    xi = cholesky_solve6(H, g)
+    xi = cholesky_solve6(H, g, lam)
     wtot = torch.sum(weights, dim=-1)
     rmse = torch.sqrt(torch.sum(weights * r * r, dim=-1) / torch.clamp(wtot, min=1e-9))
     # zero inliers: the system is pure damping, freeze instead
@@ -273,7 +278,7 @@ def _icp_fused(poses0, scene_c, scene_normals, scene_weights, model_pts,
                                         posed_c, mnorm)
         tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
         lam = damping * (tr / 6.0 + 1e-12)
-        xi = cholesky_solve6(H + lam[..., None, None] * eye, g) * step_scale
+        xi = cholesky_solve6(H + lam[..., None, None] * eye, g, lam) * step_scale
         xi = torch.where((wsum_w > 6.0)[..., None], xi, 0.0)
         step = torch.sum(xi * xi, dim=-1)
         frozen = frozen | (step < converge_tol * converge_tol)

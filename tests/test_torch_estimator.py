@@ -144,6 +144,14 @@ def test_port_never_imports_jax():
         "assert cli.main(['eval', '--poses', 'none', '--data', 'none',\n"
         "                 '--object', 'none', '--device', 'cpu']) == 2\n"
         "from icra20_hand_object_pose_tpu_torch.ops import icp, knn_cuda, pso\n"
+        "import bench_torch\n"
+        "from icra20_hand_object_pose_tpu_torch import benchmarks\n"
+        "from icra20_hand_object_pose_tpu_torch.utils import profiling\n"
+        "import importlib.util\n"
+        "for name in ('profile_phases_torch', 'eval_occlusion_torch',\n"
+        "             'eval_accuracy_torch'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('icra20_hand_object_pose_tpu.'))\n"
         "assert not bad, bad\n"
