@@ -6,7 +6,7 @@
                                            # grouped shapes (scripts/kernel_ab.sh:
                                            # a checkout from before them)
     python3 chip_smoke.py --sweep          # build + every launch plan, timed
-    python3 chip_smoke.py --library-only   # build + kernel phases + phases 10-12
+    python3 chip_smoke.py --library-only   # build + kernel phases + phases 10-12, 14
     python3 chip_smoke.py --bench-only     # build + kernel phases + phase 13, then
                                            # scripts/profile_phases_torch.py
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
@@ -27,7 +27,8 @@ Phases, in order; any failure raises and the script exits non-zero:
        objects (8x the particles, one query per object and one shared by
        all), and at the in-scan and explorer shapes of the benchmark's
        library of 8 x 128 particles (1024 and 64 x 512 x 256, a query per
-       object); then the tie cases (every reference point duplicated across
+       object), and at the mesh's per-shard shapes of phase 14
+       (SHARD_SHAPES); then the tie cases (every reference point duplicated across
        the ranges a block's thread groups split the cloud into), ungrouped
        and grouped: the same indices, d2 bitwise equal, matched points and
        normals bitwise equal (the plain version of a shape above 2^27
@@ -71,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      from a cold start, then `eval` on what it wrote, with the pose files
      as `--ref-poses` of the jsonl dump. Both return 0; the promised files
      exist; the PNG round trip is within half a depth unit of the generated
-     frames; frame 0 re-initialised and no later frame did; frame 0 or
+     frames; the depths read through the native loader (use_native=True)
+     bitwise the Python codec's, each decoder's ms/frame printed; frame 0 re-initialised and no later frame did; frame 0 or
      frame 1 within ADD-S 10% of the diameter, frames 2-7 under 5 mm; the
      parity report of the dump against itself reads identical; K1 launched
      and K2, K3 not;
@@ -112,7 +114,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      each prints exactly one JSON line with its keys, every number in it
      finite and > 0; printed beside phase 4's frame; every launch at a
      checked shape;
-  14. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  14. the mesh (parallel.make_mesh; one process per rank):
+     (a) a process group of one over NCCL: 3 frames of
+     Tracker(Estimator(mesh=make_mesh(1))) at config 3 from the ground
+     truth (ADD-S < 5 mm, K1 launched), then LibrarySweep(mesh=
+     make_mesh(1, "obj")) on phase 10's inputs: its init step and its track
+     step bitwise phase 10's;
+     (b) two spawned ranks on the one card over gloo (the kernels built
+     here before they start): 2 frames of the swarm split 256 + 256
+     (Estimator(mesh=make_mesh(2, "p"))): pose, fitness and hypothesis
+     slots bitwise equal on both ranks, ADD-S < 5 mm; the object-sharded
+     sweep (4 objects a rank): init and track step bitwise phase 10's; a
+     tracked step of the (1, 2) mesh with each swarm over "p": finite,
+     ADD-S < 5 mm per object. Each rank returns its launch counts and
+     shapes, checked as every path phase's;
+     (c) with two cards or more, (b) over NCCL, one rank per card;
+     otherwise a line says why it did not run;
+     each printed beside phase 4's frame and phase 10's step (ms). Two
+     ranks on one card are no speed-up and are not read as one;
+  15. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Every phase prints its seconds.
 
@@ -120,7 +140,10 @@ Each path phase sets every launch count to 0 just before it and reads the
 counts just after; the JSON line's `launches` are those of the path that
 carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6), and its
 `library_sweep_launches` those of the library paths (K1: phase 10, K2 and
-K3: their step of phase 12); `shapes` holds every timed shape's numbers.
+K3: their step of phase 12), its `mesh_launches` each kernel's launches
+in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
+it; K2 and K3 read 0 unless a mesh path launched them); `shapes` holds
+every timed shape's numbers.
 Phases 7-9 and 11 run K1 too and print their own counts. Each path phase
 also reads the (P, blocks, Ns, Nm) of every launch it made and fails if
 phase 3 did not hold that kernel against its plain version at that shape.
@@ -164,6 +187,18 @@ LIB_SHAPES = [(LIB * P, Ns, Nm) for P, Ns, Nm in NN_SHAPES[:5]]
 BENCH_SWEEP_SHAPES = [(LIB * 128, LIB, 512, 256), (LIB * 8, LIB, 512, 256)]
 NN_GROUPED = ([(P, Pq, Ns, Nm) for P, Ns, Nm in LIB_SHAPES for Pq in (1, LIB)]
               + BENCH_SWEEP_SHAPES + [(12, 3, 37, 73)])
+# the per-shard shapes of phase 14 (P, B, Ns, Nm): a tracked frame whose swarm
+# is split over 2 ranks (in-scan and explorer at 256 particles a rank; the
+# polish keeps 18 candidates); the sweep of LIB objects over 2 ranks (tracked
+# in-scan, explorer and polish, init in-scan and prescreen support, and the
+# init polish of 4 objects); the (1, 2) mesh (LIB objects x 256 a rank,
+# tracked in-scan and explorer)
+HALF = LIB // 2
+SHARD_SHAPES = [(256, 1, 512, 256), (16, 1, 512, 256),
+                (HALF * 512, HALF, 512, 256), (HALF * 32, HALF, 512, 256),
+                (HALF * 18, HALF, 2048, 1024), (HALF * 1024, HALF, 512, 512),
+                (HALF * 17, HALF, 2048, 1024),
+                (LIB * 256, LIB, 512, 256), (LIB * 16, LIB, 512, 256)]
 # tie cases, checked only (P, Pq, Ns, Nm): the polish shape and the ragged
 # one with every reference point duplicated across the split ranges (see
 # `_ties`), with a shared query and with one per group
@@ -437,16 +472,19 @@ def nn_case(knn_cuda, gen, dev, gather: bool, P, Pq, Ns, Nm, ties=False, plan=No
 
 def nn_phase(knn_cuda, dev, gather: bool, grouped: bool = True) -> dict:
     """K1 (gather) or K2 against its plain version at every main-path shape,
-    shared and per-particle queries, and at the library sweep's shapes, one
-    query per object and one for all, timed; then the tie cases, checked
-    only. Returns the in-scan numbers, with every shape's under "shapes"."""
+    shared and per-particle queries, at the library sweep's shapes, one
+    query per object and one for all, and at the mesh's per-shard shapes,
+    timed; then the tie cases, checked only. Returns the in-scan numbers,
+    with every shape's under "shapes"."""
     import torch
 
     tag = "K1" if gather else "K2"
     gen = torch.Generator(device=dev).manual_seed(0 if gather else 1)
     max_err, res = 0.0, {}
     cases = [(P, Pq, Ns, Nm) for P, Ns, Nm in NN_SHAPES for Pq in (1, P)]
-    for P, Pq, Ns, Nm in cases + (NN_GROUPED if grouped else []):
+    # (a shape on two lists runs once)
+    for P, Pq, Ns, Nm in dict.fromkeys(cases + (NN_GROUPED + SHARD_SHAPES if grouped
+                                                else [])):
         run, plain, err = nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm)
         max_err = max(max_err, err)
         t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
@@ -680,17 +718,24 @@ def counts(knn_cuda) -> dict:
             "K3": knn_cuda.nn_gn_batched.launches}
 
 
-def check_shapes(knn_cuda, path: str) -> None:
-    """Every (P, B, Ns, Nm) launched since the last reset (B the query or
-    scene blocks) must be one that the kernel phases held against the plain
-    version (K1/K2: NN_SHAPES at B = 1 and B = P, and NN_GROUPED; K3:
-    GN_SHAPES at B = 1, and GN_GROUPED); prints the launches by shape."""
-    seen = {"K1": knn_cuda.nn_gather_batched.shapes,
-            "K2": knn_cuda.nn_batched.shapes,
-            "K3": knn_cuda.nn_gn_batched.shapes}
+def launched(knn_cuda) -> dict:
+    """Each kernel's launches by (P, B, Ns, Nm) since the last reset."""
+    return {"K1": dict(knn_cuda.nn_gather_batched.shapes),
+            "K2": dict(knn_cuda.nn_batched.shapes),
+            "K3": dict(knn_cuda.nn_gn_batched.shapes)}
+
+
+def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
+    """Every (P, B, Ns, Nm) launched since the last reset (or in `seen`, a
+    `launched` result; B the query or scene blocks) must be one that the
+    kernel phases held against the plain version (K1/K2: NN_SHAPES at B = 1
+    and B = P, NN_GROUPED and SHARD_SHAPES; K3: GN_SHAPES at B = 1, and
+    GN_GROUPED); prints the launches by shape."""
+    seen = launched(knn_cuda) if seen is None else seen
     print(f"{path} launches by (P, blocks, Ns, Nm): "
-          f"{ {k: dict(v) for k, v in seen.items() if v} }", flush=True)
-    nn_ok = {(P, B, Ns, Nm) for P, Ns, Nm in NN_SHAPES for B in (1, P)} | set(NN_GROUPED)
+          f"{ {k: v for k, v in seen.items() if v} }", flush=True)
+    nn_ok = ({(P, B, Ns, Nm) for P, Ns, Nm in NN_SHAPES for B in (1, P)}
+             | set(NN_GROUPED) | set(SHARD_SHAPES))
     gn_ok = {(P, 1, Ns, Nm) for P, Ns, Nm in GN_SHAPES} | set(GN_GROUPED)
     for k, shapes in seen.items():
         unchecked = set(shapes) - (gn_ok if k == "K3" else nn_ok)
@@ -867,6 +912,7 @@ def sequence_phase(knn_cuda, dev, work: str) -> dict:
         device=dev)
     gen_ms = 1000.0 * (time.perf_counter() - t0) / n_frames
     check(len(seq) == n_frames, f"{len(seq)} frames read back")
+    native_phase(seq_dir, n_frames)
     for fr, rec in zip(frames, seq):
         err = float(np.abs(rec.depth - fr.depth).max())
         check(err <= 0.5 * cam.depth_scale + 1e-6,
@@ -924,6 +970,41 @@ def sequence_phase(knn_cuda, dev, work: str) -> dict:
           f"a dump against itself is not identical: {rep}")
     return dict(seq=seq, mesh=mesh, hand=hand, dense=dense, poses=poses,
                 track_ms=track_ms)
+
+
+def native_phase(seq_dir: str, n_frames: int) -> None:
+    """The sequence read through the native loader (use_native=True), by
+    index and by its prefetching iterator, against the Python codec
+    (use_native=False): depths bitwise equal; each decoder's ms per frame
+    of depth decode alone."""
+    import numpy as np
+
+    from icra20_hand_object_pose_tpu_torch import native
+    from icra20_hand_object_pose_tpu_torch.datasets.sequence import RecordedSequence
+    from icra20_hand_object_pose_tpu_torch.utils import pngio
+
+    t0 = time.perf_counter()
+    nat = RecordedSequence(seq_dir, use_native=True)   # builds the loader
+    build_s = time.perf_counter() - t0
+    py = RecordedSequence(seq_dir, use_native=False)
+    streamed = list(nat)
+    check(len(streamed) == n_frames, f"the native iterator gave {len(streamed)} frames")
+    for i, fr in enumerate(streamed):
+        ref = py[i]
+        check(fr.index == i and np.array_equal(fr.depth, ref.depth)
+              and np.array_equal(nat[i].depth, ref.depth),
+              f"frame {i}: the native loader's depth differs from the codec's")
+    files = nat._depth_files
+    decode_ms = {}
+    for name, read in (("native", native.read_png16), ("python", pngio.read_png_gray)):
+        t0 = time.perf_counter()
+        for path in files:
+            read(path)
+        decode_ms[name] = 1000.0 * (time.perf_counter() - t0) / len(files)
+    print(f"native loader: built or loaded in {build_s:.2f} s; {n_frames} depths "
+          f"bitwise the Python codec's (by index and prefetched); decode "
+          f"{decode_ms['native']:.3f} ms/frame native, {decode_ms['python']:.3f} "
+          f"ms/frame Python", flush=True)
 
 
 def _demo_estimator(sq: dict, dev, **score):
@@ -1108,7 +1189,8 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
     """Phase 10: LibrarySweep per scene at full width: an init step from
     init_state(), 3 tracked steps, one tracked step under torch.profiler,
     and the 8-frame `_scene_prep` loop alone under torch.profiler. Returns
-    the library (for the next phases) and K1's launches."""
+    the library (for the next phases), K1's launches, the results of steps
+    0 and 1 (phase 14 repeats them) and the tracked ms/step."""
     import torch
 
     from icra20_hand_object_pose_tpu_torch.models.estimator import _generator
@@ -1120,9 +1202,10 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
     thr = sc.cfg.tracker.fitness_reinit_threshold
     reset_counts(knn_cuda)
     torch.cuda.reset_peak_memory_stats()
-    ms, adds, fitness = [], [], []
+    ms, adds, fitness, results = [], [], [], []
     for i in range(4):
         st, res, t, a, _ = lib.step(sweep, st, f"library step {i}")
+        results.append(res)
         ms.append(t)
         adds.append(a)
         reinit = res.reinitialized.tolist()
@@ -1182,7 +1265,7 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
           f"profiled step's wall time, {100.0 * prep_ops / prof['aten_calls']:.1f}% "
           f"of its ATen calls", flush=True)
     check_shapes(knn_cuda, "library path")
-    return dict(lib=lib, launches=n["K1"])
+    return dict(lib=lib, launches=n["K1"], steps=results[:2], step_ms=step_ms)
 
 
 def shared_phase(sc: Scene, knn_cuda, dev) -> None:
@@ -1296,6 +1379,192 @@ def library_kernels_phase(lb: dict, sc: Scene, knn_cuda, dev, work: str) -> dict
           f"{[[round(1000 * a, 2) for a in r['add_s']] for r in recs]}, "
           f"launches {counts(knn_cuda)}", flush=True)
     return launches
+
+
+def arrays(res) -> dict:
+    """A result's tensors (None fields left out) as host arrays."""
+    return {k: v.cpu().numpy() for k, v in res._asdict().items() if v is not None}
+
+
+def same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].shape == b[k].shape and (a[k] == b[k]).all() for k in a)
+
+
+def add_launches(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def mesh_local_phase(sc: Scene, lb: dict, knn_cuda, dev, single: dict | None) -> dict:
+    """Phase 14 (a): a process group of one over NCCL. Three tracked frames
+    of Estimator(mesh=make_mesh(1)) from the ground truth (the search's
+    stream is folded with the rank, so not phase 4's poses), then the
+    object mesh's sweep: its init and track steps bitwise phase 10's.
+    Returns each kernel's launches in both."""
+    import torch
+    import torch.distributed as dist
+
+    from icra20_hand_object_pose_tpu_torch.models import Estimator, Tracker
+    from icra20_hand_object_pose_tpu_torch.parallel import make_mesh
+    from icra20_hand_object_pose_tpu_torch.parallel.mesh import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        tracker = Tracker(Estimator(sc.obj, sc.hand, sc.cfg, mesh=make_mesh(1)), seed=0)
+        tracker.state = tracker.state._replace(pose=sc.pose_gt, initialized=True,
+                                               fitness=1.0)
+        reset_counts(knn_cuda)
+        ms = []
+        for i in range(3):
+            res, t, a = sc.step(tracker, f"mesh of one, frame {i}")
+            ms.append(t)
+            check(not res.reinitialized and a < 5.0,
+                  f"mesh of one, frame {i}: reinit {res.reinitialized}, ADD-S {a:.3f} mm")
+        frame = counts(knn_cuda)
+        k1 = frame["K1"]
+        check(k1 > 0, "the mesh-of-one frames never launched K1")
+        check_shapes(knn_cuda, "mesh-of-one frame path")
+        lib = lb["lib"]
+        sweep = lib.sweep(mesh=make_mesh(1, "obj"))
+        reset_counts(knn_cuda)
+        st, sweep_ms = sweep.init_state(), []
+        for i, ref in enumerate(lb["steps"]):
+            st, res, t, _, _ = lib.step(sweep, st, f"mesh-of-one library step {i}")
+            sweep_ms.append(t)
+            check(same(arrays(res), arrays(ref)),
+                  f"the mesh-of-one sweep's step {i} differs from phase 10's")
+        n = counts(knn_cuda)
+        check(n["K1"] > 0, "the mesh-of-one sweep never launched K1")
+        check_shapes(knn_cuda, "mesh-of-one library path")
+        beside = (f" beside phase 4's {single['frame_ms']:.2f} ms/frame" if single else "")
+        print(f"mesh of one (NCCL): Tracker.step {sum(ms[1:]) / 2:.2f} ms/frame "
+              f"(frames 1-2){beside}; sweep init step {sweep_ms[0]:.2f} ms, track "
+              f"step {sweep_ms[1]:.2f} ms beside phase 10's {lb['step_ms']:.2f} "
+              f"ms/step, both bitwise phase 10's; launches {frame} + {n}",
+              flush=True)
+        return add_launches(frame, n)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_cases(rank: int, world: int, port: int, backend: str) -> dict:
+    """Phase 14 (b)/(c) on one rank: the split swarm's frames, the object
+    mesh's init and track steps, the (1, world) mesh's tracked step; each
+    with its results as host arrays, its ms and its launches by shape."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from icra20_hand_object_pose_tpu_torch.models import Estimator
+    from icra20_hand_object_pose_tpu_torch.ops import knn_cuda
+    from icra20_hand_object_pose_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        sc = Scene(dev)
+        lib = Library(sc, dev, ["box", "cylinder", "sphere", "ellipsoid"])
+        out = {}
+        est = Estimator(sc.obj, sc.hand, sc.cfg, mesh=make_mesh(world, "p"))
+        reset_counts(knn_cuda)
+        results, ms = [], []
+        for i in range(2):
+            res, t, _ = timed_call(lambda: est.estimate(
+                sc.depth, sc.pose_gt, sc.hand_base, sc.hand_q, key=i), dev)
+            results.append(arrays(res))
+            ms.append(t)
+        out["frame"] = dict(results=results, ms=ms, launches=launched(knn_cuda))
+        sweep = lib.sweep(mesh=make_mesh(world, "obj"))
+        reset_counts(knn_cuda)
+        st, results, ms = sweep.init_state(), [], []
+        for i in range(2):
+            (st, res), t, _ = timed_call(lambda: sweep.step(
+                st, lib.depths, lib.hand_bases, lib.hand_qs), dev)
+            results.append(arrays(res))
+            ms.append(t)
+        out["sweep"] = dict(results=results, ms=ms, launches=launched(knn_cuda))
+        sweep = lib.sweep(mesh=make_mesh((1, world), ("obj", "p")), particle_axis="p")
+        reset_counts(knn_cuda)
+        (_, res), t, _ = timed_call(lambda: sweep.step(
+            lib.seeded(sweep), lib.depths, lib.hand_bases, lib.hand_qs), dev)
+        out["sweep_2d"] = dict(results=[arrays(res)], ms=[t], launches=launched(knn_cuda))
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_ranks_phase(sc: Scene, lb: dict, knn_cuda, single: dict | None,
+                     backend: str) -> dict:
+    """Phase 14 (b) (gloo: two ranks on this card) or (c) (NCCL: a card a
+    rank): two spawned ranks run `_mesh_cases` (parallel.spawn_ranks: a
+    rank that fails or sends nothing in 600 s fails the phase, and both
+    are stopped). Checks the results (module docstring) and every rank's
+    launch shapes; returns each kernel's launches on both ranks."""
+    import numpy as np
+
+    from icra20_hand_object_pose_tpu_torch import evaluation
+    from icra20_hand_object_pose_tpu_torch.parallel import spawn_ranks
+
+    world, tag = 2, "(b) gloo, one card" if backend == "gloo" else "(c) NCCL, a card each"
+    got = dict(enumerate(spawn_ranks(_mesh_cases, world, (backend,), timeout=600)))
+    r0, r1 = got[0], got[1]
+    for i, (a, b) in enumerate(zip(r0["frame"]["results"], r1["frame"]["results"])):
+        check(same(a, b), f"{tag}: split-swarm frame {i} differs between the ranks")
+        adds = 1000.0 * evaluation.add_s_error(a["pose"], sc.pose_gt, sc.dense)
+        check(adds < 5.0, f"{tag}: split-swarm frame {i} ADD-S {adds:.3f} mm >= 5 mm")
+        print(f"{tag}: split-swarm frame {i}: ADD-S {adds:.3f} mm, fitness "
+              f"{float(a['fitness']):.4f}, bitwise equal on both ranks", flush=True)
+    for r, out in got.items():
+        for i, (a, ref) in enumerate(zip(out["sweep"]["results"], lb["steps"])):
+            check(same(a, arrays(ref)),
+                  f"{tag}: rank {r}'s object-sharded step {i} differs from phase 10's")
+    a, b = r0["sweep_2d"]["results"][0], r1["sweep_2d"]["results"][0]
+    check(same(a, b) and np.isfinite(a["poses"]).all(),
+          f"{tag}: the (1, 2) mesh's step is not finite or differs between ranks")
+    lib = lb["lib"]
+    adds = [1000.0 * evaluation.add_s_error(a["poses"][o], sc.pose_gt, lib.dense[o])
+            for o in range(LIB)]
+    check(max(adds) < 5.0, f"{tag}: the (1, 2) mesh's ADD-S {adds} >= 5 mm")
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    for r, out in got.items():
+        for case in ("frame", "sweep", "sweep_2d"):
+            seen = out[case]["launches"]
+            check(bool(seen["K1"]), f"{tag}: rank {r}'s {case} never launched K1")
+            check_shapes(knn_cuda, f"{tag} rank {r} {case} path", seen)
+            total = add_launches(total, {k: sum(v.values()) for k, v in seen.items()})
+    ms = {c: r0[c]["ms"] for c in ("frame", "sweep", "sweep_2d")}
+    beside = (f" (phase 4: {single['frame_ms']:.2f} ms/frame, whole swarm)"
+              if single else "")
+    print(f"{tag}: rank 0's split-swarm frames {[round(t, 2) for t in ms['frame']]} ms"
+          f"{beside}; object-sharded init and track steps "
+          f"{[round(t, 2) for t in ms['sweep']]} ms, bitwise phase 10's (phase 10: "
+          f"{lb['step_ms']:.2f} ms/step); (1, 2) step {ms['sweep_2d'][0]:.2f} ms, "
+          f"ADD-S mm {[round(x, 3) for x in adds]}; launches on both ranks {total}",
+          flush=True)
+    return total
+
+
+def mesh_phase(sc: Scene, lb: dict, knn_cuda, dev, single: dict | None) -> dict:
+    """Phase 14: (a), (b), and (c) where there are two cards; returns each
+    kernel's launches in all three."""
+    import torch
+
+    n = add_launches(
+        run_phase("14a mesh of one", mesh_local_phase, sc, lb, knn_cuda, dev, single),
+        run_phase("14b two ranks on one card", mesh_ranks_phase, sc, lb, knn_cuda,
+                  single, "gloo"))
+    if torch.cuda.device_count() >= 2:
+        n = add_launches(n, run_phase("14c a card a rank", mesh_ranks_phase, sc, lb,
+                                      knn_cuda, single, "nccl"))
+    else:
+        print(f"phase 14 (c) not run: {torch.cuda.device_count()} CUDA device "
+              f"here, and NCCL needs a card per rank", flush=True)
+    return n
 
 
 def bench_line(knn_cuda, name: str, fn) -> dict:
@@ -1413,6 +1682,7 @@ def main(argv: list[str]) -> int:
             run_phase("11 shared scene", shared_phase, sc, knn_cuda, dev)
             run_phase("12 library kernels", library_kernels_phase, lb, sc, knn_cuda,
                       dev, work)
+        run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, None)
         print(smi, flush=True)
         return 0
     k1, single = run_phase("4 track", track_phase, sc, knn_cuda)
@@ -1429,6 +1699,7 @@ def main(argv: list[str]) -> int:
                                       lb, sc, knn_cuda, dev, work),
                             K1=lb["launches"])
     run_phase("13 bench", bench_phase, knn_cuda, dev, single)
+    mesh_launches = run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, single)
 
     names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)
@@ -1436,6 +1707,7 @@ def main(argv: list[str]) -> int:
         "name": names[k], "route": "cuda", "source": SOURCE[k],
         "replaces": REPLACES[k], "launches": launches[k],
         "library_sweep_launches": lib_launches[k],
+        "mesh_launches": mesh_launches[k],
         **stats[k], "library_ms": None,
     } for k in ("K1", "K2", "K3")]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ sequence and writes per-frame poses.
     python -m icra20_hand_object_pose_tpu_torch.cli sweep \
         --data <seq_dir_0> --object mesh_0.obj --data <seq_dir_1> --object mesh_1.obj \
         [--config cfg.yaml] --out out_sweep/
+    torchrun --nproc-per-node 2 -m icra20_hand_object_pose_tpu_torch.cli sweep \
+        --shard --data ... --object ... --out out_sweep/
     python -m icra20_hand_object_pose_tpu_torch.cli bench
 
 Outputs: per-frame 4x4 pose text files, a structured metrics.jsonl, and a
@@ -16,13 +18,17 @@ summary table. `--device` picks where the models and frames live (default
 `cuda`; `cpu` for a machine without a card). `--profile DIR` wraps the run
 in a torch.profiler trace and writes it to DIR as a Chrome trace. `sweep`
 tracks a model library, one sequence per object, all objects stepped as one
-batched program (parallel.LibrarySweep). `bench` prints the headline
+batched program (parallel.LibrarySweep); with `--shard` under torchrun the
+objects are split over the ranks (one per card over NCCL with `--device
+cuda`, gloo ranks with `--device cpu`) and rank 0 writes the files a
+one-process run writes. `bench` prints the headline
 benchmark's JSON line (benchmarks.main; `bench_torch.py` at the repo root
 runs the other modes).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -219,49 +225,90 @@ def cmd_eval(args):
     return 0
 
 
+def _sweep_mesh(args):
+    """(mesh, device, whether this process joined a process group) for
+    `sweep`: with --shard, the object mesh over the ranks of the process
+    group that the caller, or torchrun (WORLD_SIZE), set up; else none."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import make_mesh
+
+    device = torch.device(args.device)
+    if not args.shard:
+        return None, device, False
+    joined = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        joined = True
+    if dist.is_initialized():
+        return make_mesh(axis_name="obj"), device, joined
+    return None, device, False
+
+
 def cmd_sweep(args):
     """Track a model library concurrently: one sequence per object, all
-    stepped as one batched program on one device (LibrarySweep). Writes
-    obj<i>_poses/<frame>.txt per object and one metrics.jsonl record per
-    frame."""
+    stepped as one batched program (LibrarySweep), the objects split over
+    the ranks with --shard under torchrun. Writes obj<i>_poses/<frame>.txt
+    per object and one metrics.jsonl record per frame (rank 0 alone on a
+    mesh)."""
     import torch
-
-    from .datasets.sequence import RecordedSequence
-    from .evaluation import JsonlLogger, add_s_error
-    from .models import ObjectModel
-    from .parallel import LibrarySweep
+    import torch.distributed as dist
 
     if len(args.data) != len(args.object):
         print(f"error: {len(args.data)} sequences vs {len(args.object)} "
               f"objects", file=sys.stderr)
         return 2
+    n_cards = torch.cuda.device_count() if args.device.startswith("cuda") else 0
+    if (args.shard and n_cards > 1 and not dist.is_initialized()
+            and "WORLD_SIZE" not in os.environ):
+        # never one card quietly: a process per card
+        print(f"error: --shard over {n_cards} CUDA devices runs one process "
+              f"per device: torchrun --nproc-per-node {n_cards} -m "
+              f"icra20_hand_object_pose_tpu_torch.cli sweep --shard ...",
+              file=sys.stderr)
+        return 2
+    mesh, device, joined = _sweep_mesh(args)
+    try:
+        return _sweep(args, mesh, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _sweep(args, mesh, device):
+    from .datasets.sequence import RecordedSequence
+    from .evaluation import JsonlLogger, add_s_error
+    from .models import ObjectModel
+    from .parallel import LibrarySweep, is_writer
+
     seqs = [RecordedSequence(d) for d in args.data]
     cams = {(s.camera.width, s.camera.height, s.camera.fx) for s in seqs}
     if len(cams) != 1:
         print("error: sequences must share camera intrinsics", file=sys.stderr)
         return 2
-    if (args.shard and torch.device(args.device).type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "--shard over several devices is not ported yet: see ROADMAP.md, "
-            "'Still to port'")
     n_frames = min(len(s) for s in seqs)
     cfg = _load_cfg(args, camera=seqs[0].camera)
     objs = [
-        ObjectModel.load(p, model_points=cfg.model_points, device=args.device)
+        ObjectModel.load(p, model_points=cfg.model_points, device=device)
         for p in args.object
     ]
-    sweep = LibrarySweep(objs, _make_hand(cfg, args.device), cfg)
+    sweep = LibrarySweep(objs, _make_hand(cfg, device), cfg, mesh=mesh)
     st = sweep.init_state()
-    os.makedirs(args.out, exist_ok=True)
-    pose_dirs = []
-    for i in range(len(objs)):
-        d = os.path.join(args.out, f"obj{i:02d}_poses")
-        os.makedirs(d, exist_ok=True)
-        pose_dirs.append(d)
+    # every rank steps; one writes
+    writer = is_writer(mesh)
+    pose_dirs = [os.path.join(args.out, f"obj{i:02d}_poses")
+                 for i in range(len(objs))]
+    if writer:
+        for d in pose_dirs:
+            os.makedirs(d, exist_ok=True)
     model_pts = [o.model_pts.cpu().numpy() for o in objs]
     t_total = 0.0
-    with JsonlLogger(os.path.join(args.out, "metrics.jsonl")) as log:
+    with (JsonlLogger(os.path.join(args.out, "metrics.jsonl")) if writer
+          else contextlib.nullcontext()) as log:
         for fi in range(n_frames):
             frames = [s[fi] for s in seqs]
             depths = np.stack([np.asarray(f.depth) for f in frames])
@@ -281,6 +328,8 @@ def cmd_sweep(args):
             poses = res.poses.cpu().numpy()
             dt = time.perf_counter() - t0
             t_total += dt
+            if log is None:
+                continue
             rec = dict(frame=fi, ms=dt * 1000.0,
                        fitness=res.fitness.cpu().numpy().tolist(),
                        reinitialized=res.reinitialized.cpu().numpy().tolist())
@@ -299,8 +348,9 @@ def cmd_sweep(args):
             )
             print(f"frame {fi}: {dt*1000:.0f}ms {len(objs)} objects{extra}",
                   flush=True)
-    print(f"{n_frames} frames x {len(objs)} objects in {t_total:.2f}s "
-          f"({t_total/max(n_frames,1)*1000:.0f} ms/frame) -> {args.out}")
+    if writer:
+        print(f"{n_frames} frames x {len(objs)} objects in {t_total:.2f}s "
+              f"({t_total/max(n_frames,1)*1000:.0f} ms/frame) -> {args.out}")
     return 0
 
 
@@ -379,8 +429,8 @@ def main(argv=None):
     p.add_argument("--config", default=None)
     p.add_argument("--out", default="out_sweep")
     p.add_argument("--shard", action="store_true",
-                   help="shard the object axis over all local devices (with "
-                        "one device: no effect; several are not ported yet)")
+                   help="shard the object axis over the ranks of torchrun "
+                        "(one per device); a lone process runs unsharded")
     device_arg(p)
     p.set_defaults(fn=cmd_sweep)
 

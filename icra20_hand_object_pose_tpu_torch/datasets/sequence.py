@@ -11,9 +11,11 @@ Directory layout:
       hand_base/000000.txt # optional 4x4 hand base->camera
       hand_q/000000.txt    # optional joint angles (one row)
 
-Frames are host numpy arrays, decoded by the pure-Python codec in
-utils/pngio.py. The reference's native C++ loader is not ported:
-`use_native=True` raises.
+Frames are host numpy arrays. Depth decoding takes the native C++ loader
+(native/: a zlib PNG decoder and a prefetch thread pool, built with g++ at
+first use) when it builds, and the pure-Python codec in utils/pngio.py
+otherwise: `use_native=None` (the default) picks so, True requires the
+native loader, False the codec. Both decode the same bits.
 """
 from __future__ import annotations
 
@@ -75,10 +77,15 @@ class RecordedSequence:
             width=int(meta.get("width", w)), height=int(meta.get("height", h)),
             depth_scale=self.depth_scale,
         )
-        if use_native is True:
-            raise RuntimeError(
-                "native loader requested, but the C++ loader (native/) is "
-                "not ported; pass use_native=None for the Python codec")
+        self._native = None
+        if use_native is not False:
+            from .. import native
+
+            self._native = native if native.available() else None
+            if use_native is True and self._native is None:
+                raise RuntimeError(
+                    f"native loader requested but not available: "
+                    f"{native.build_error()}")
 
     def _read_depth_raw(self, path: str) -> np.ndarray:
         return pngio.read_png_gray(path)
@@ -92,19 +99,28 @@ class RecordedSequence:
         return p if os.path.exists(p) else None
 
     def __getitem__(self, idx: int) -> RecordedFrame:
-        raw = self._read_depth_raw(self._depth_files[idx])
-        depth = raw.astype(np.float32) * self.depth_scale
+        path = self._depth_files[idx]
+        raw = (self._native.read_png16(path) if self._native is not None
+               else self._read_depth_raw(path))
+        pose_gt, hand_base, hand_q, rgb = self._load_side(idx)
+        return RecordedFrame(
+            depth=raw.astype(np.float32) * self.depth_scale,
+            pose_gt=pose_gt, hand_base=hand_base, hand_q=hand_q, index=idx,
+            rgb=rgb,
+        )
+
+    def _load_side(self, idx: int):
+        """Frame idx's (pose_gt, hand_base, hand_q, rgb), each None when its
+        file is missing."""
         p = self._side_file("pose_gt", idx)
         hb = self._side_file("hand_base", idx)
         hq = self._side_file("hand_q", idx)
-        return RecordedFrame(
-            depth=depth,
-            pose_gt=_read_matrix(p, (4, 4)) if p else None,
-            hand_base=_read_matrix(hb, (4, 4)) if hb else None,
-            hand_q=np.loadtxt(hq, dtype=np.float64).reshape(-1).astype(np.float32)
+        return (
+            _read_matrix(p, (4, 4)) if p else None,
+            _read_matrix(hb, (4, 4)) if hb else None,
+            np.loadtxt(hq, dtype=np.float64).reshape(-1).astype(np.float32)
             if hq else None,
-            index=idx,
-            rgb=self._load_rgb(idx),
+            self._load_rgb(idx),
         )
 
     def _load_rgb(self, idx: int) -> np.ndarray | None:
@@ -112,8 +128,13 @@ class RecordedSequence:
         return pngio.read_png_rgb(p) if p else None
 
     def __iter__(self) -> Iterator[RecordedFrame]:
-        for i in range(len(self)):
-            yield self[i]
+        if self._native is not None:
+            # the C++ pool decodes frames ahead of the tracker
+            yield from self._native.prefetch_frames(
+                self._depth_files, self._load_side, self.depth_scale)
+        else:
+            for i in range(len(self)):
+                yield self[i]
 
 
 def save_sequence(

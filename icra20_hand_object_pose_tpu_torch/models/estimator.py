@@ -25,6 +25,15 @@ the CUDA kernel (ops/knn_cuda.py).
 `_search` is written for a library of O objects (parallel/sharding.py
 steps one as a single program); `Estimator.estimate` and `Tracker.step`
 run it at O = 1.
+
+With `mesh=` (parallel.make_mesh) this process is one rank of the mesh
+dimension `axis_name`: it searches n_particles / n of the swarm and agrees
+with the other ranks on the global best every iteration and on the
+candidates before the final selection (ops/pso.py), so every rank returns
+the same result. The scene prep draws the same numbers on every rank (it is
+the same prep); the search's draws come from a generator folded from the
+frame's seed and the rank (`rng.fold`), so a mesh of one draws another
+stream than `mesh=None`, as the reference's `fold_in` does.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import icp, knn_cuda, preprocess, pso, render, score
+from ..parallel.mesh import is_writer, mesh_axis
 from ..utils import rng, se3
 from ..utils.config import EstimatorConfig
 from .hand import HandModel
@@ -79,6 +89,8 @@ class Estimator:
         cfg: EstimatorConfig = EstimatorConfig(),
         nn_fn=None,
         corr_fn=None,
+        mesh=None,
+        axis_name: str = "p",
     ):
         self.obj = obj
         self.hand = hand if (hand is not None and cfg.hand.enabled) else None
@@ -98,6 +110,14 @@ class Estimator:
                 tau2=(cfg.score.scene_cov_tau ** 2
                       if cfg.score.scene_cov_weight > 0 else 0.0),
             )
+        # the particle axis split over the mesh dimension `axis_name`: this
+        # rank's index along it and the group the agreement gathers over
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self._shards, self._shard, self._group = 1, 0, None
+        if mesh is not None:
+            self._shards, self._shard = mesh_axis(mesh, axis_name)
+            self._group = mesh.get_group(axis_name)
         cam = cfg.camera
         self.render_factor = max(1, cam.height // cfg.render_size)
         self.lo_h = cam.height // self.render_factor
@@ -375,8 +395,16 @@ class Estimator:
         or 1 (one frame for all); `roi_radius` a float or one per object,
         the sigmas floats or [O,1,1] tensors. Every field of the result
         carries the object axis. A single frame is the O = 1 case
-        (`_frame_step`)."""
+        (`_frame_step`). On a mesh `n_particles` is the whole swarm's: this
+        rank searches its share with its own draws."""
         cfg = self.cfg
+        if self.mesh is not None:
+            if n_particles % self._shards:
+                raise ValueError(
+                    f"n_particles={n_particles} not divisible by mesh size "
+                    f"{self._shards}")
+            n_particles //= self._shards
+            gen = rng.fold(gen, self._shard)
         cam = cfg.camera
         scene, weights, hd_lo, hd_hi, hand_delta = prep
         # global registration ranks candidates tens of mm apart under grasp
@@ -398,8 +426,7 @@ class Estimator:
                               roi_w, weights)                     # [O,Ns]
 
         wsum = torch.clamp(torch.sum(weights, dim=-1), min=1e-9)
-        centroid = (torch.sum(scene.points * weights[..., None], 1)
-                    / wsum[:, None])                               # [O,3]
+        centroid = icp.weighted_sum(scene.points, weights) / wsum[:, None]  # [O,3]
         kr = min(cfg.pso.scan_render_subset, render_pts.shape[1])
         render_vis = None
         explorer_seeds = None
@@ -461,6 +488,7 @@ class Estimator:
             splat_radius=1,
             pso_cfg=pso_cfg, icp_cfg=cfg.icp, score_cfg=score_cfg,
             nn_fn=self.nn_fn, corr_fn=self.corr_fn, gn_fn=self.gn_fn,
+            group=self._group,
             render_vis=render_vis,
             prior_pose=prev_poses[:, 0],
             prior_valid=not init_scoring,
@@ -548,11 +576,16 @@ class Estimator:
         if self.hand is not None and tuple(hand_q.shape) != (J,):
             raise ValueError(
                 f"hand_q shape {tuple(hand_q.shape)} != ({J},) for this hand")
+        # each prior needs particles on every shard
         n_hyp = prev_pose.shape[0] if prev_pose.dim() == 3 else 1
-        if n_hyp > 1 and static["n_particles"] < 2 * n_hyp:
+        per_shard = static["n_particles"] // self._shards
+        if n_hyp > 1 and per_shard < 2 * n_hyp:
             raise ValueError(
                 f"{n_hyp} hypothesis priors need at least {2 * n_hyp} "
-                f"particles; got {static['n_particles']}")
+                f"particles per shard; got {per_shard} "
+                f"(n_particles={static['n_particles']}"
+                + (f" over {self._shards} shards)" if self.mesh is not None
+                   else ")"))
         dyn = (_generator(key, self.device), depth_m, prev_pose, hand_base,
                hand_q, self.obj.tensors())
         return dyn, static
@@ -699,7 +732,12 @@ class Tracker:
 
     def save(self, path: str) -> None:
         """Write the tracker's state to `path` (.npz, the reference's field
-        names; `key` is this tracker's integer key)."""
+        names; `key` is this tracker's integer key). Over a sharded
+        estimator global rank 0 writes it (every rank holds the same state)
+        and every rank waits for it."""
+        if not is_writer(self.est.mesh):
+            torch.distributed.barrier()
+            return
         st = self.state
 
         def arr(x):
@@ -724,6 +762,8 @@ class Tracker:
             pose_tracked=np.asarray(st.pose_tracked),
             **extra,
         )
+        if self.est.mesh is not None:
+            torch.distributed.barrier()
 
     def load(self, path: str) -> None:
         """Restore the state `save` wrote: tensors go to the estimator's

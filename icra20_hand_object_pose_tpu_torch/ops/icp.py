@@ -99,10 +99,14 @@ def solve_gn_step(
     leading axes. Returns (xi [...,6], rmse [...])."""
     r = torch.sum(normals * (scene_pts - matched_pts), dim=-1)     # [...,Ns]
     pxn = torch.linalg.cross(matched_pts, normals)
-    J = torch.cat([pxn, normals], dim=-1)                         # [...,Ns,6]
-    wJ = J * weights[..., None]
-    H = wJ.transpose(-1, -2) @ J                                   # [...,6,6]
-    g = (wJ.transpose(-1, -2) @ r[..., None])[..., 0]              # [...,6]
+    Jr = torch.cat([pxn, normals, r[..., None]], dim=-1)          # [...,Ns,7]: [J | r]
+    wJ = Jr[..., :6] * weights[..., None]
+    # H and g from one batched product [6,Ns] x [Ns,7]: a separate
+    # matrix-vector product for g runs a kernel that cuBLAS picks by the
+    # batch count, which gave a particle other bits in a library of another
+    # size (or on a mesh rank with a share of it); this one does not
+    Hg = wJ.transpose(-1, -2) @ Jr                                 # [...,6,7]
+    H, g = Hg[..., :6], Hg[..., 6]
     tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
     lam = damping * (tr / 6.0 + 1e-12)
     H = H + lam[..., None, None] * torch.eye(6, dtype=H.dtype, device=H.device)
@@ -188,6 +192,16 @@ def _search(scene_pts, posed, mnorm_all, nn_fn, corr_fn):
     return torch.gather(posed, 2, sel), torch.gather(mnorm_all, 2, sel), d2
 
 
+def weighted_sum(pts: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """[O,3]: sum over n of weights[o,n] * pts[o,n] (pts [1|O,Ns,3], one
+    cloud for all objects or one each), one reduction per object. A CUDA
+    reduction's summation order follows how many outputs it has, so a sum
+    over all O at once would give an object other bits in a library of
+    another size (or on a mesh rank with O/n of them)."""
+    return torch.stack([torch.sum(pts[min(o, pts.shape[0] - 1)] * w[:, None], dim=0)
+                        for o, w in enumerate(weights)])
+
+
 def _icp_objects(poses0, scene_pts, scene_normals, scene_weights, model_pts,
                  model_normals, *, iters, max_corresp_dist,
                  normal_angle_max_deg, damping, step_scale, converge_tol,
@@ -196,7 +210,7 @@ def _icp_objects(poses0, scene_pts, scene_normals, scene_weights, model_pts,
     scene_weights [O,Ns], model [O,Nm,3]."""
     min_cos = math.cos(math.radians(normal_angle_max_deg))
     wsum = torch.clamp(torch.sum(scene_weights, dim=-1), min=1e-9)       # [O]
-    anchor = torch.sum(scene_pts * scene_weights[..., None], dim=1) / wsum[:, None]
+    anchor = weighted_sum(scene_pts, scene_weights) / wsum[:, None]
     scene_c = scene_pts - anchor[:, None]                               # [O,Ns,3]
     if gn_fn is not None:
         return _icp_fused(poses0, scene_c, scene_normals,

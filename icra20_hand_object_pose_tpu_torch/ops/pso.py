@@ -16,8 +16,14 @@ A library of O objects is searched as one program (parallel/sharding.py):
 [O,P,4,4], one model per object, one observation per object or one for
 all), runs the per-particle math on all O x P particles at once and
 reduces each swarm per object; a single object is a library of one. The
-helpers around it take either form. Sharding a swarm over several devices
-(the reference's `axis_name`) is not ported.
+helpers around it take either form.
+
+A swarm split over the ranks of a process group (`group`, the reference's
+`axis_name`; models/estimator.py builds it from a mesh) runs this code on
+every rank with its share of the particles: each iteration's champions are
+gathered and reduced once more (`swarm_best`), and every rank's candidates
+are gathered before the final selection (`gather_candidates`), so the
+result is the same on every rank. The object axis stays a batch axis.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import all_gather
 from ..utils import se3
 from ..utils.config import IcpConfig, PsoConfig, ScoreConfig
 from . import icp as icp_mod
@@ -156,6 +163,17 @@ def continuity_select(cand_poses, cand_fitness, prior_pose, model_pts, *,
     return torch.argmin(torch.where(elig, d_prior, float("inf")), dim=-1)
 
 
+def gather_candidates(group, poses: torch.Tensor, *scalars: torch.Tensor):
+    """Every rank's candidates ([O,C,4,4] poses and [O,C] scalars) as one set
+    [O, n*C, ...], rank-major (the reference's all_gather + reshape), in one
+    gather of the packed fields."""
+    O, C = poses.shape[:2]
+    packed = torch.cat([poses.reshape(O, C, 16)] + [s[..., None] for s in scalars], -1)
+    allc = all_gather(packed, group).transpose(0, 1).reshape(O, -1, packed.shape[-1])
+    return (allc[..., :16].reshape(O, -1, 4, 4),) + tuple(
+        allc[..., 16 + i] for i in range(len(scalars)))
+
+
 def snap_to_branch(
     pose: torch.Tensor,        # [4,4] selected best pose   library: [O,4,4]
     prior_pose: torch.Tensor,  # [4,4]                               [O,4,4]
@@ -195,6 +213,7 @@ def pso(
     nn_fn=None,
     corr_fn=None,
     gn_fn=None,
+    group=None,
     observed_neutral: torch.Tensor | None = None,
     observed_hi: tuple | None = None,
     render_vis: torch.Tensor | None = None,
@@ -213,7 +232,8 @@ def pso(
     is the full-resolution scoring tier of the polish and finisher (its
     images [1|O,H,W]); render_vis [O,Nr] the frame-constant self-occlusion
     sample mask; prior_pose [O,4,4]; explorer_seeds [O,E,4,4] global seeds
-    refined outside the swarm."""
+    refined outside the swarm. With `group` the swarm is this rank's share
+    of one split over the group's ranks (module docstring)."""
     O, P = poses0.shape[:2]
     dev = poses0.device
     n_resample = max(1, int(round(P * pso_cfg.elite_frac))) if P > 1 else 0
@@ -289,8 +309,16 @@ def pso(
         )
 
     def swarm_best(poses, fitness, coverage):
+        """Each object's best particle; with `group`, a second round over
+        every rank's champion ([n,O,18] gathered: bytes, not clouds)."""
         bi = torch.argmax(fitness, dim=1)                      # [O]
-        return pick(poses, bi), pick(fitness, bi), pick(coverage, bi)
+        bp, bf, bc = pick(poses, bi), pick(fitness, bi), pick(coverage, bi)
+        if group is not None:
+            champs = all_gather(
+                torch.cat([bp.reshape(O, 16), bf[:, None], bc[:, None]], 1), group)
+            win = pick(champs.transpose(0, 1), torch.argmax(champs[..., 16], dim=0))
+            bp, bf, bc = win[:, :16].reshape(O, 4, 4), win[:, 16], win[:, 17]
+        return bp, bf, bc
 
     def keep_better(improved, new, old):
         return torch.where(improved.reshape((O,) + (1,) * (new.dim() - 1)), new, old)
@@ -411,6 +439,11 @@ def pso(
     p_sel = torch.where(take_pol[..., None, None], polished, cands)
     s_sel = (torch.where(take_pol, pol_stats.support, supp_c) if use_cov
              else torch.zeros_like(f_sel))
+    if group is not None:
+        # every rank's candidates: the selection below and the hypotheses
+        # downstream see every basin
+        p_sel, f_sel, c_sel, s_sel = gather_candidates(group, p_sel, f_sel,
+                                                        c_sel, s_sel)
     bi = torch.argmax(f_sel, dim=1)
     if prior_pose is not None and pso_cfg.tie_break_eps > 0 and prior_valid:
         bi = continuity_select(p_sel, f_sel, prior_pose, model_pts,

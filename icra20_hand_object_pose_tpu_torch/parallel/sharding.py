@@ -1,4 +1,5 @@
-"""The multi-object library sweep (counterpart of parallel/sharding.py).
+"""The device mesh and the multi-object library sweep (counterpart of
+parallel/sharding.py).
 
     sweep = LibrarySweep(objects, make_t42_hand(), cfg)        # on "cuda"
     state = sweep.init_state()
@@ -15,12 +16,26 @@ the O = 1 case of the same code.
 
 A frame runs the track program, the init program (the single-object init:
 prescreen, delayed resample, init-only scoring, the reinit swarm and ICP
-cadence), or on a mixed frame both over all O objects, merged by the
-watchdog mask. The one host read per frame is that [O] mask.
+cadence), or on a mixed frame both over the objects that need them,
+merged by the watchdog mask. The one host read per frame is that [O] mask.
 
-The reference also shards the object axis and each swarm over a device
-mesh (`mesh=`, `particle_axis=`, `make_mesh`). That is not ported: both
-arguments raise NotImplementedError (ROADMAP.md, "Still to port").
+The mesh is SPMD over processes, one rank per shard (the reference shards
+inside one program with `shard_map`): every rank runs this code on its
+shard and meets the others only in collectives on a mesh dimension's
+process group (`all_gather`). `make_mesh` builds a named
+`torch.distributed.device_mesh.DeviceMesh` over an initialized process
+group (torchrun, or `torch.distributed.init_process_group`); both live in
+parallel/mesh.py, which the ops and models layers import, and are
+re-exported here:
+
+  - `Estimator(obj, hand, cfg, mesh=make_mesh(n, "p"))` splits one swarm
+    over the ranks, agreeing on the global best every iteration;
+  - `LibrarySweep(objects, hand, cfg, mesh=make_mesh(n, "obj"))` runs the
+    objects O/n to a rank, with no communication until each step gathers
+    the results; with a 2-D mesh, `make_mesh((n_obj, n_p), ("obj", "p"))`
+    and `particle_axis="p"`, each object's swarm is also split over "p".
+
+Every rank returns the whole result.
 """
 from __future__ import annotations
 
@@ -28,12 +43,14 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.estimator import Estimator, FrameResult, _ckpt_path, _generator, _split
 from ..models.hand import HandModel
 from ..models.object_model import ObjectModel
 from ..utils import rng, se3
 from ..utils.config import EstimatorConfig
+from .mesh import all_gather, is_writer, make_mesh, mesh_axis  # noqa: F401
 
 
 class SweepState(NamedTuple):
@@ -73,7 +90,7 @@ def frame_seeds(key: int, n_objects: int) -> tuple[int, list[int], list[int]]:
 
 
 class LibrarySweep:
-    """Track O objects concurrently as one batched program on one device.
+    """Track O objects concurrently as one batched program per device.
 
     `shared_scene=True` is the model-library mode (one observed frame, O
     candidate models: which object is in the hand, and where?): step() then
@@ -81,6 +98,13 @@ class LibrarySweep:
     object-independent frame work (`Estimator._scene_prep`) runs once, and
     every object searches that one scene. Object 0's result is bitwise the
     per-scene path's fed O copies of the frame with the same seeds.
+
+    With `mesh` (make_mesh), this rank runs the objects of its index along
+    `axis_name`, O / n of them, from the seeds a one-process sweep gives
+    them: object o of a sharded sweep is object o of the one-process sweep.
+    `particle_axis` names a second mesh dimension over which each object's
+    swarm is split as `Estimator(mesh=)` splits one. Every rank steps with
+    the whole [O,...] inputs and returns the whole [O,...] state and result.
 
     The objects live on one device, the first object's (`device="cuda"` is
     `ObjectModel`'s default); step() puts its inputs there."""
@@ -98,11 +122,10 @@ class LibrarySweep:
     ):
         if not objects:
             raise ValueError("need at least one object")
-        if mesh is not None or particle_axis is not None:
-            raise NotImplementedError(
-                "sharding the object or particle axis over several devices "
-                "(mesh=, particle_axis=) is not ported yet: see ROADMAP.md, "
-                "'Still to port'")
+        if shared_scene and particle_axis is not None:
+            raise ValueError(
+                "shared_scene composes with the 1-D object mesh only; drop "
+                "particle_axis or use the per-scene mode")
         shapes = {
             (tuple(o.model_pts.shape), tuple(o.render_pts.shape)) for o in objects
         }
@@ -114,50 +137,75 @@ class LibrarySweep:
         if len({o.device for o in objects}) != 1:
             raise ValueError("objects must live on one device")
         self.objects = list(objects)
-        self.n_objects = len(objects)
+        self.n_objects = O = len(objects)
         self.cfg = cfg
+        self.mesh = mesh
         self.axis_name = axis_name
+        self.particle_axis = particle_axis
         self.shared_scene = shared_scene
+        # this rank's objects [lo, hi) and the group the results gather over
+        self._lo, self._hi, self._group = 0, O, None
+        if mesh is not None:
+            n_obj, r = mesh_axis(mesh, axis_name)
+            if O % n_obj:
+                raise ValueError(
+                    f"{O} objects not divisible by mesh axis {axis_name}={n_obj}")
+            self._lo, self._hi = r * (O // n_obj), (r + 1) * (O // n_obj)
+            self._group = mesh.get_group(axis_name)
+        n_p = 1
+        if particle_axis is not None:
+            names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else None
+            if mesh is None or particle_axis not in names:
+                raise ValueError(
+                    f"particle_axis {particle_axis!r} needs a mesh with that "
+                    f"axis (got {names})")
+            n_p, _ = mesh_axis(mesh, particle_axis)
         H = cfg.tracker.n_hypotheses
         if H > 1:
             for name, count in (("pso.particles", cfg.pso.particles),
                                 ("tracker.reinit_particles",
                                  cfg.tracker.reinit_particles)):
-                if count < 2 * H:
+                if count // n_p < 2 * H:
                     raise ValueError(
                         f"{H} hypotheses need at least {2 * H} particles per "
                         f"shard; {name}={count}"
-                    )
-        # one estimator provides the frame program; the per-object tensors
-        # are passed to it stacked on a leading object axis
-        self._est = Estimator(objects[0], hand, cfg, nn_fn=nn_fn)
+                        + (f" over {n_p} particle shards" if n_p > 1 else ""))
+        local = self.objects[self._lo:self._hi]
+        # one estimator provides the frame program (with the particle group,
+        # if any); the per-object tensors are passed to it stacked on a
+        # leading object axis
+        self._est = Estimator(
+            local[0], hand, cfg, nn_fn=nn_fn,
+            mesh=mesh if particle_axis is not None else None,
+            axis_name=particle_axis or "p")
         self.device = self._est.device
         # symmetry groups identity-padded to the library's largest: the
         # padding rows are duplicates that never win the branch snap
         s_max = max(o.symmetries.shape[0] for o in objects)
         eye = torch.eye(4, device=self.device)
         self._obj_tensors = (
-            torch.stack([o.model_pts for o in objects]),
-            torch.stack([o.model_normals for o in objects]),
-            torch.stack([o.render_pts for o in objects]),
-            torch.stack([o.render_normals for o in objects]),
-            torch.stack([o.render_w for o in objects]),
+            torch.stack([o.model_pts for o in local]),
+            torch.stack([o.model_normals for o in local]),
+            torch.stack([o.render_pts for o in local]),
+            torch.stack([o.render_normals for o in local]),
+            torch.stack([o.render_w for o in local]),
             torch.stack([
                 torch.cat([o.symmetries,
                            eye.expand(s_max - o.symmetries.shape[0], 4, 4)])
-                for o in objects
+                for o in local
             ]),
         )
-        self._diameters = np.asarray([o.diameter for o in objects], np.float64)
+        self._diameters = np.asarray([o.diameter for o in local], np.float64)
 
     # -- the two programs ----------------------------------------------------
 
     @torch.no_grad()
     def _run(self, keys, depths, prev, hand_bases, hand_qs, mode: str) -> FrameResult:
-        """One program ('track' or 'init') over all O objects, with the
-        arguments `Estimator.frame_args` builds for `mode`. `keys` holds one
-        seed (or torch.Generator, or rng.Draws) per object; `prev` [O,4,4]
-        or [O,Hy,4,4]; every field of the result is [O,...]."""
+        """One program ('track' or 'init') over this rank's objects, with
+        the arguments `Estimator.frame_args` builds for `mode`. Takes every
+        object's inputs: `keys` one seed (or torch.Generator, or rng.Draws)
+        per object, `prev` [O,4,4] or [O,Hy,4,4], depths etc. [O,...] (one
+        frame when shared); every field of the result is [hi - lo, ...]."""
         cfg, est = self.cfg, self._est
         tr = cfg.tracker
         if mode == "track":
@@ -179,17 +227,19 @@ class LibrarySweep:
         else:
             raise ValueError(f"unknown mode {mode!r}")
         init = mode == "init"
-        gens = rng.Stack([_generator(k, self.device) for k in keys])
-        depths, prev = est._tensor(depths), est._tensor(prev)
+        lo, hi = self._lo, self._hi
+        gens = rng.Stack([_generator(k, self.device) for k in keys[lo:hi]])
+        depths, prev = est._tensor(depths), est._tensor(prev)[lo:hi]
         hand_bases, hand_qs = est._tensor(hand_bases), est._tensor(hand_qs)
         if self.shared_scene:
-            # one prep for all, on object 0's stream (the per-scene order)
-            preps = [est._scene_prep(gens.sources[0], depths, hand_bases,
-                                     hand_qs, init)]
+            # one prep for all, on object 0's stream (the per-scene order);
+            # a rank without object 0 draws that stream for the prep alone
+            g0 = gens.sources[0] if lo == 0 else _generator(keys[0], self.device)
+            preps = [est._scene_prep(g0, depths, hand_bases, hand_qs, init)]
         else:
-            # object-independent work on O different images, frame by frame
+            # object-independent work on the objects' images, frame by frame
             preps = [est._scene_prep(g, depths[o], hand_bases[o], hand_qs[o], init)
-                     for o, g in enumerate(gens.sources)]
+                     for o, g in zip(range(lo, hi), gens.sources)]
         return est._search(
             gens, est._stack_preps(preps),
             prev if prev.dim() == 4 else prev[:, None],
@@ -252,33 +302,50 @@ class LibrarySweep:
         prev_i = state.poses if H == 1 else tiled
         return key, keys_track, keys_init, prev_t, prev_i, need_init
 
-    def _finish(self, mode: str, state: SweepState, key, need_init,
-                out_t: FrameResult | None, out_i: FrameResult | None):
-        """Per-frame glue, part 2: merge the track and init results by the
-        watchdog mask and build the next state. `mode` is 'track', 'init'
-        or 'both' (a mixed frame)."""
+    def _merge(self, m, out_t: FrameResult | None, out_i: FrameResult | None):
+        """Per-frame glue, part 2: this rank's results of the track and init
+        programs merged by its objects' watchdog mask `m`: (pose, fitness,
+        coverage, hyp_poses, hyp_fitness), the last two None when H = 1."""
+        H = self.cfg.tracker.n_hypotheses
+        if out_t is None or out_i is None:
+            out = out_i if out_t is None else out_t
+            hyp = (out.hyp_poses, out.hyp_fitness) if H > 1 else (None, None)
+            return (out.pose, out.fitness, out.coverage) + hyp
+
+        def sel(a, b):
+            return torch.where(m.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+        hyp = ((sel(out_i.hyp_poses, out_t.hyp_poses),
+                sel(out_i.hyp_fitness, out_t.hyp_fitness)) if H > 1
+               else (None, None))
+        return (sel(out_i.pose, out_t.pose), sel(out_i.fitness, out_t.fitness),
+                sel(out_i.coverage, out_t.coverage)) + hyp
+
+    def _gather(self, merged: tuple) -> tuple:
+        """Every rank's merged results along the object axis, in object
+        order: one all_gather of the fields packed [O/n, 18 + 17 H]."""
+        pose, fitness, coverage, hyp_p, hyp_f = merged
+        n = pose.shape[0]
+        fields = [pose.reshape(n, 16), fitness[:, None], coverage[:, None]]
+        if hyp_p is not None:
+            fields += [hyp_p.reshape(n, -1), hyp_f]
+        packed = all_gather(torch.cat(fields, dim=1), self._group)
+        packed = packed.reshape(self.n_objects, -1)
+        pose, fitness, coverage = (packed[:, :16].reshape(-1, 4, 4),
+                                   packed[:, 16], packed[:, 17])
+        if hyp_p is not None:
+            H = hyp_f.shape[1]
+            hyp_p = packed[:, 18:18 + 16 * H].reshape(-1, H, 4, 4)
+            hyp_f = packed[:, 18 + 16 * H:]
+        return pose, fitness, coverage, hyp_p, hyp_f
+
+    def _finish(self, state: SweepState, key, need_init, pose, fitness,
+                coverage, hyp_p, hyp_f):
+        """Per-frame glue, part 3: the next state and the result from every
+        object's merged results."""
         O = self.n_objects
         H = self.cfg.tracker.n_hypotheses
-        m = need_init
-        if mode == "init":
-            pose, fitness, coverage = out_i.pose, out_i.fitness, out_i.coverage
-            hyp_p, hyp_f = out_i.hyp_poses, out_i.hyp_fitness
-        elif mode == "track":
-            pose, fitness, coverage = out_t.pose, out_t.fitness, out_t.coverage
-            hyp_p, hyp_f = out_t.hyp_poses, out_t.hyp_fitness
-        else:
-            def sel(a, b):
-                return torch.where(m.reshape((O,) + (1,) * (a.dim() - 1)), a, b)
-
-            pose = sel(out_i.pose, out_t.pose)
-            fitness = sel(out_i.fitness, out_t.fitness)
-            coverage = sel(out_i.coverage, out_t.coverage)
-            if H > 1:
-                hyp_p = sel(out_i.hyp_poses, out_t.hyp_poses)
-                hyp_f = sel(out_i.hyp_fitness, out_t.hyp_fitness)
-            else:  # shapes can differ (motion-prior 2-stack); unused anyway
-                hyp_p, hyp_f = out_t.hyp_poses, out_t.hyp_fitness
-        tracked = ~m
+        tracked = ~need_init
         was_tracked = (state.pose_tracked if state.pose_tracked is not None
                        else torch.zeros((O,), dtype=torch.bool, device=self.device))
         new_state = SweepState(
@@ -297,7 +364,8 @@ class LibrarySweep:
             pose_tracked=tracked,
         )
         return new_state, SweepResult(
-            poses=pose, fitness=fitness, coverage=coverage, reinitialized=m,
+            poses=pose, fitness=fitness, coverage=coverage,
+            reinitialized=need_init,
             hyp_poses=hyp_p if H > 1 else None,
             hyp_fitness=hyp_f if H > 1 else None,
         )
@@ -336,21 +404,30 @@ class LibrarySweep:
             hand_qs = torch.zeros(lead + (J,), device=self.device)
         key, keys_track, keys_init, prev_t, prev_i, need_init = self._prep(state)
         # the one host read per frame: the two programs have different swarm
-        # shapes, so the mask picks on the host which of them run
-        ni = need_init.cpu().numpy()
+        # shapes, so the mask of this rank's objects picks on the host which
+        # of them run. The state is the same on every rank, so every rank of
+        # a particle group runs the same programs (and their collectives)
+        m = need_init[self._lo:self._hi]
+        ni = m.cpu().numpy()
         out_t = None if ni.all() else self._run(
             keys_track, depths, prev_t, hand_bases, hand_qs, "track")
         out_i = None if not ni.any() else self._run(
             keys_init, depths, prev_i, hand_bases, hand_qs, "init")
-        mode = ("both" if (out_t is not None and out_i is not None)
-                else "track" if out_t is not None else "init")
-        return self._finish(mode, state, key, need_init, out_t, out_i)
+        merged = self._merge(m, out_t, out_i)
+        if self._group is not None:
+            merged = self._gather(merged)
+        return self._finish(state, key, need_init, *merged)
 
     # -- checkpoint / resume -------------------------------------------------
 
     def save_state(self, state: SweepState, path: str) -> None:
         """Write `state` to `path` (.npz, the reference's field names;
-        `key` is this package's integer key)."""
+        `key` is this package's integer key). On a mesh, global rank 0
+        writes the file, the one that a one-process sweep writes, and every
+        rank waits for it."""
+        if not is_writer(self.mesh):
+            dist.barrier()
+            return
         extra = {}
         for name in ("coverage", "hyp_poses", "hyp_fitness", "prev_poses",
                      "vel_ok", "pose_tracked"):
@@ -366,6 +443,8 @@ class LibrarySweep:
             frame_idx=np.asarray(state.frame_idx, np.int32),
             **extra,
         )
+        if self.mesh is not None:
+            dist.barrier()
 
     def load_state(self, path: str, seed: int = 0) -> SweepState:
         """The state `save_state` wrote, on the sweep's device. A file of

@@ -49,6 +49,25 @@ class Stack:
         return len(self.sources)
 
 
+def fold(gen, idx: int):
+    """The source of shard `idx` of a swarm split over a mesh (the
+    counterpart of jax.random.fold_in): a torch.Generator seeded from
+    `gen`'s initial seed and `idx`, or a Stack of such, one per object.
+    Injected Draws are served as they are to shard 0 only: served alike to
+    every shard, they would make the shards' swarms copies of one another."""
+    if isinstance(gen, Stack):
+        return Stack([fold(g, idx) for g in gen.sources])
+    if isinstance(gen, Draws):
+        if idx:
+            raise ValueError(
+                f"injected Draws cannot feed shard {idx}: every shard would "
+                f"draw the same particles")
+        return gen
+    words = np.random.SeedSequence([gen.initial_seed(), int(idx)]).generate_state(
+        1, np.uint64)
+    return torch.Generator(device=gen.device).manual_seed(int(words[0]) >> 1)
+
+
 def _stacked(draw, gen: Stack, *args) -> torch.Tensor:
     return torch.stack([draw(g, *args) for g in gen.sources])
 

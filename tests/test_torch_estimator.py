@@ -141,6 +141,9 @@ def test_port_never_imports_jax():
         "from icra20_hand_object_pose_tpu_torch import datasets, models, ops, utils\n"
         "from icra20_hand_object_pose_tpu_torch.datasets import sequence\n"
         "from icra20_hand_object_pose_tpu_torch.utils import pngio\n"
+        "from icra20_hand_object_pose_tpu_torch import native, parallel\n"
+        "from icra20_hand_object_pose_tpu_torch.parallel import make_mesh\n"
+        "assert native.available()\n"
         "assert cli.main(['eval', '--poses', 'none', '--data', 'none',\n"
         "                 '--object', 'none', '--device', 'cpu']) == 2\n"
         "from icra20_hand_object_pose_tpu_torch.ops import icp, knn_cuda, pso\n"

@@ -184,8 +184,17 @@ def test_sequence_errors(tiny_frames, tmp_path):
         sequence.RecordedSequence(str(tmp_path / "missing"))
     root = str(tmp_path / "seq")
     sequence.save_sequence(frames[:1], cam, root)
-    with pytest.raises(RuntimeError, match="not ported"):
-        sequence.RecordedSequence(root, use_native=True)
+    # a native loader that cannot be built: True raises, None falls back
+    from icra20_hand_object_pose_tpu_torch import native
+
+    saved = native._lib, native._build_error
+    native._lib, native._build_error = None, "no compiler"
+    try:
+        with pytest.raises(RuntimeError, match="not available: no compiler"):
+            sequence.RecordedSequence(root, use_native=True)
+        assert sequence.RecordedSequence(root)._native is None
+    finally:
+        native._lib, native._build_error = saved
 
 
 @pytest.mark.parametrize("kind", ["gray16", "gray8_filtered", "rgb"])

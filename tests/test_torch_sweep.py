@@ -337,9 +337,10 @@ def test_constructor_and_step_errors(tiny):
         LibrarySweep([], thand, cfg)
     with pytest.raises(ValueError, match="hypotheses need at least"):
         LibrarySweep(tobjs, thand, _cfg(cfg, n_hypotheses=9))
-    for kw in (dict(mesh=object()), dict(particle_axis="p")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LibrarySweep(tobjs, thand, cfg, **kw)
+    with pytest.raises(ValueError, match="needs a mesh with that axis"):
+        LibrarySweep(tobjs, thand, cfg, particle_axis="p")
+    with pytest.raises(ValueError, match="shared_scene composes"):
+        LibrarySweep(tobjs, thand, cfg, particle_axis="p", shared_scene=True)
     sh = LibrarySweep(tobjs[:1], thand, cfg, shared_scene=True)
     with pytest.raises(ValueError, match="ONE frame"):
         sh.step(sh.init_state(), np.zeros((1, 48, 64), np.float32))
