@@ -6,7 +6,8 @@
                                            # grouped shapes (scripts/kernel_ab.sh:
                                            # a checkout from before them)
     python3 chip_smoke.py --sweep          # build + every launch plan, timed
-    python3 chip_smoke.py --library-only   # build + kernel phases + phases 10-12, 14
+    python3 chip_smoke.py --library-only   # build + kernel phases + phases 10-12,
+                                           # 14, 15
     python3 chip_smoke.py --bench-only     # build + kernel phases + phase 13, then
                                            # scripts/profile_phases_torch.py
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
@@ -28,7 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
        all), and at the in-scan and explorer shapes of the benchmark's
        library of 8 x 128 particles (1024 and 64 x 512 x 256, a query per
        object), and at the mesh's per-shard shapes of phase 14
-       (SHARD_SHAPES); then the tie cases (every reference point duplicated across
+       (SHARD_SHAPES), and at the tracked step's shapes of phase 15's
+       libraries of 2 and 32 objects (BLIND_SHAPES); then the tie cases (every reference point duplicated across
        the ranges a block's thread groups split the cloud into), ungrouped
        and grouped: the same indices, d2 bitwise equal, matched points and
        normals bitwise equal (the plain version of a shape above 2^27
@@ -37,7 +39,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      - K3 at the tracked scan (512 x 512 x 256), the explorer pulls (32 x
        512 x 256), the init scan (1024 x 512 x 512) and a ragged case, the
        same three of a library sweep with a scene per object (8 scenes, the
-       last nearly empty), then tie cases and 4096-point scenes: H, g and
+       last nearly empty), the tracked scan and explorer pulls of the
+       libraries of 2 and 32 objects, then tie cases and 4096-point scenes: H, g and
        wrr within rtol 1e-4 plus an atol of 1e-5 x the largest |H| entry of
        that particle (the two sum in other orders), wsum and hits within
        1e-5 relative, a repeated call bitwise equal, and each object's
@@ -73,7 +76,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      as `--ref-poses` of the jsonl dump. Both return 0; the promised files
      exist; the PNG round trip is within half a depth unit of the generated
      frames; the depths read through the native loader (use_native=True)
-     bitwise the Python codec's, each decoder's ms/frame printed; frame 0 re-initialised and no later frame did; frame 0 or
+     bitwise the Python codec's, each decoder's ms/frame printed; the
+     sequence copied into the released layout (renumbered from 7, poses
+     under annotated_poses/, hand bases under hand_pose/), converted by
+     scripts/convert_reference_dataset.py and read through the port
+     (native and Python): depths, rgb, poses, hand bases and joints
+     bitwise what was written; frame 0 re-initialised and no later frame did; frame 0 or
      frame 1 within ADD-S 10% of the diameter, frames 2-7 under 5 mm; the
      parity report of the dump against itself reads identical; K1 launched
      and K2, K3 not;
@@ -132,7 +140,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      otherwise a line says why it did not run;
      each printed beside phase 4's frame and phase 10's step (ms). Two
      ranks on one card are no speed-up and are not read as one;
-  15. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  15. blind paths, the sweep paths no other phase runs (phase 10's
+     library and sizes unless said): (1) a sweep init through K2
+     (nn_fn) and one under fused_gn (K3), each init step then one tracked
+     step: every object within ADD-S 10% of its diameter on step 0 or 1,
+     K2 without K1 and at the init scan (8192, 8, 512, 512), K3 there too,
+     each grouped; (2) a mixed step from phase 10's tracked state with the
+     fitness of objects 1 and 5 forced to 0: exactly those re-initialize,
+     each object bitwise the all-init or all-track program's from the same
+     state and seeds, the next state's bookkeeping (vel_ok, pose_tracked,
+     prev_poses, key) as LibrarySweep._finish writes it; (3) at O = 8, 2
+     (objects 0-1) and 32 (the 4 meshes cycled, ObjectModel(mesh, seed=i)),
+     one tracked step's program from the ground truth in the default
+     configuration, through nn_fn and under fused_gn: object 0 and the last
+     bitwise their single estimates (Estimator of that object, its seed),
+     every result field, ADD-S < 5 mm; (4) O = 2 in pixel mode, 2 tracked
+     steps: no re-init, ADD-S < 5 mm, object 0 bitwise its single
+     estimate, peak device memory printed; (5) each of the 8 objects its
+     own moving sequence (generate_sequence on the card, seed o, 4 frames):
+     4 steps from init_state() (step 0 re-initialises all, no later step
+     does; within 10% of the diameter on step 0 or 1, steps 2-3 < 5 mm),
+     then from the state after step 1 two tracked steps under
+     TrackerConfig(motion_prior=1.0) and two under n_hypotheses=2, finite,
+     < 5 mm, each printing the prior branch of LibrarySweep._prep it took
+     (checked against the prior built); every case's launches checked by
+     shape; runs under --library-only too;
+  16. scripts, in-process on the card: calibrate_base_agree_torch.py
+     --trials 2 and ab_scan_icp_torch.py --frames 2 --seeds 1 --only base:
+     each the reference's JSON keys, every number finite, under 60 s;
+  17. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Every phase prints its seconds.
 
@@ -142,7 +178,8 @@ carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6), and its
 `library_sweep_launches` those of the library paths (K1: phase 10, K2 and
 K3: their step of phase 12), its `mesh_launches` each kernel's launches
 in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
-it; K2 and K3 read 0 unless a mesh path launched them); `shapes` holds
+it; K2 and K3 read 0 unless a mesh path launched them), its
+`blind_path_launches` each kernel's launches over phase 15; `shapes` holds
 every timed shape's numbers.
 Phases 7-9 and 11 run K1 too and print their own counts. Each path phase
 also reads the (P, blocks, Ns, Nm) of every launch it made and fails if
@@ -181,12 +218,19 @@ NN_SHAPES = [(512, 512, 256), (32, 512, 256), (18, 2048, 1024),
 # (scene) per object (Pq = LIB) and with one shared by all (Pq = 1, the
 # shared-scene mode); and a ragged case (P, Pq, Ns, Nm)
 LIB = 8
+# the library's meshes, cycled over its objects (BASELINE config 5)
+LIB_MESHES = ["box", "cylinder", "sphere", "ellipsoid"]
 LIB_SHAPES = [(LIB * P, Ns, Nm) for P, Ns, Nm in NN_SHAPES[:5]]
 # and the in-scan ICP and the explorer (8 seeds an object) of the benchmark's
 # library of LIB x 128 particles (`benchmarks.bench_sweep`'s default)
 BENCH_SWEEP_SHAPES = [(LIB * 128, LIB, 512, 256), (LIB * 8, LIB, 512, 256)]
+# phase 15's libraries of 2 and 32 objects, tracked: the in-scan ICP, the
+# explorer and the polish with a query per object (K3: in-scan and explorer,
+# a scene per object)
+BLIND_SIZES = (2, 32)
+BLIND_SHAPES = [(O * P, O, Ns, Nm) for O in BLIND_SIZES for P, Ns, Nm in NN_SHAPES[:3]]
 NN_GROUPED = ([(P, Pq, Ns, Nm) for P, Ns, Nm in LIB_SHAPES for Pq in (1, LIB)]
-              + BENCH_SWEEP_SHAPES + [(12, 3, 37, 73)])
+              + BENCH_SWEEP_SHAPES + BLIND_SHAPES + [(12, 3, 37, 73)])
 # the per-shard shapes of phase 14 (P, B, Ns, Nm): a tracked frame whose swarm
 # is split over 2 ranks (in-scan and explorer at 256 particles a rank; the
 # polish keeps 18 candidates); the sweep of LIB objects over 2 ranks (tracked
@@ -208,9 +252,12 @@ TIE_SHAPES = [(18, 1, 2048, 1024), (3, 1, 37, 73), (LIB * 18, LIB, 2048, 1024),
 # one ragged case
 GN_SHAPES = [(512, 512, 256), (32, 512, 256), (1024, 512, 512), (3, 90, 130)]
 # K3 with a scene per object (P, G, Ns, Nm): the sweep's tracked scan,
-# explorer pulls and init scan, and a ragged case
-GN_GROUPED = [(LIB * 512, LIB, 512, 256), (LIB * 32, LIB, 512, 256),
-              (LIB * 1024, LIB, 512, 512), (12, 3, 90, 130)]
+# explorer pulls and init scan, the tracked scan and explorer pulls of
+# phase 15's libraries of 2 and 32 objects, and a ragged case
+GN_GROUPED = ([(LIB * 512, LIB, 512, 256), (LIB * 32, LIB, 512, 256),
+               (LIB * 1024, LIB, 512, 512)]
+              + [(O * P, O, Ns, Nm) for O in BLIND_SIZES for P, Ns, Nm in GN_SHAPES[:2]]
+              + [(12, 3, 90, 130)])
 # K3 checks beyond the main path (P, G, Ns, Nm, ties): the explorer pulls
 # with ties across its model ranges, alone and grouped, and a scene larger
 # than one launch covers at once (each block walks 4 chunks)
@@ -234,6 +281,12 @@ BENCH_KEYS = {
     "bench_sweep": {"metric", "value", "unit", "vs_baseline", "hyp_per_sec_chip",
                     "ms_per_object_frame", "device", "power_limit_w"},
 }
+# the keys of the two scripts' JSON (phase 16): per regime of
+# calibrate_base_agree_torch.py, and per variant of ab_scan_icp_torch.py
+CALIBRATE_KEYS = {"score_min", "score_max", "gain_min", "gain_median", "gain_max",
+                  "gains"}
+AB_SCAN_KEYS = {"variant", "shape", "ms_per_frame", "tracked_add_mm", "add_mm_median",
+                "add_mm_p90", "n_over_5mm", "n_err"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -262,14 +315,15 @@ def time_ms(fn, reps: int) -> float:
 def kernel_names(fn, reps: int = 10) -> list[str]:
     """The CUDA kernels that `reps` calls of `fn` launched, by name, from
     torch.profiler (names only: it may drop events of short kernels, and
-    now and then records none, so an empty profile is taken again)."""
+    now and then records none, even three times running, so an empty
+    profile is taken again, up to six times)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -505,9 +559,9 @@ def gn_case(knn_cuda, gen, dev, P, G, Ns, Nm, ties=False, plan=None):
     plus 1e-5 x the particle's largest |H| entry, wsum and hits within 1e-5
     relative, finite, and a repeated call bitwise equal. With G > 1 scenes
     the last one is left nearly empty (5 points of weight: its particles,
-    and only they, must read wsum <= 5), and each group launched alone must
-    give the grouped launch's bits. Returns (run, plain, max |err| over H,
-    g, wrr)."""
+    and only they, must read wsum <= 5), and each group launched alone (by
+    default with its own default plan) must give the grouped launch's bits.
+    Returns (run, plain, max |err| over H, g, wrr)."""
     import math
 
     import torch
@@ -564,12 +618,10 @@ def gn_case(knn_cuda, gen, dev, P, G, Ns, Nm, ties=False, plan=None):
         check(bool((wsum[-per:] <= 5.0).all()) and bool((wsum[:per] > 6.0).all()),
               f"K3 groups leak at {where}: wsum of the empty object "
               f"{wsum[-per:].max().item()}, of object 0 {wsum[:per].min().item()}")
-        alone_plan = plan or (knn_cuda.gn_plan(P, Ns, Nm) if hasattr(knn_cuda, "gn_plan")
-                              else None)
         for o in range(G):
             sl = slice(o * per, (o + 1) * per)
             alone = knn_cuda.nn_gn_batched(scene[o], snrm[o], sw[o], ref[sl], rnrm[sl],
-                                           **gates, **_plan_kw(alone_plan))
+                                           **gates, **_plan_kw(plan))
             check(all(torch.equal(a[sl], b) for a, b in zip(out, alone)),
                   f"K3 group {o} alone differs from the grouped launch at {where}")
     print(f"K3 {where}: max|err| H {errs[0]:.3e} g {errs[1]:.3e} "
@@ -594,7 +646,8 @@ def k3_phase(knn_cuda, dev, grouped: bool = True) -> dict:
         max_err = max(max_err, err)
         t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
         b_ms, b_by = gn_bound(P, G, Ns, Nm)
-        report("K3", f"P={P} G={G} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'gn_plan', P, Ns, Nm)}",
+        report("K3", f"P={P} G={G} Ns={Ns} Nm={Nm} "
+               f"{_plan_of(knn_cuda, 'gn_plan', P // G, Ns, Nm)}",
                t, b_ms, b_by, P * Ns * Nm)
         res[(P, G, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
     for P, G, Ns, Nm, ties in GN_CHECKS if grouped else GN_CHECKS[:2]:
@@ -913,6 +966,7 @@ def sequence_phase(knn_cuda, dev, work: str) -> dict:
     gen_ms = 1000.0 * (time.perf_counter() - t0) / n_frames
     check(len(seq) == n_frames, f"{len(seq)} frames read back")
     native_phase(seq_dir, n_frames)
+    converter_check(seq_dir, n_frames, work)
     for fr, rec in zip(frames, seq):
         err = float(np.abs(rec.depth - fr.depth).max())
         check(err <= 0.5 * cam.depth_scale + 1e-6,
@@ -1005,6 +1059,45 @@ def native_phase(seq_dir: str, n_frames: int) -> None:
           f"bitwise the Python codec's (by index and prefetched); decode "
           f"{decode_ms['native']:.3f} ms/frame native, {decode_ms['python']:.3f} "
           f"ms/frame Python", flush=True)
+
+
+def converter_check(seq_dir: str, n_frames: int, work: str) -> None:
+    """Phase 7's sequence copied into the released layout (renumbered from
+    7, poses under annotated_poses/, hand bases under hand_pose/),
+    converted by scripts/convert_reference_dataset.py, read through the
+    port with use_native=True and False: depths, rgb, poses, hand bases and
+    joint angles bitwise what phase 7 wrote."""
+    import shutil
+
+    import numpy as np
+
+    from icra20_hand_object_pose_tpu_torch.datasets.sequence import RecordedSequence
+
+    src = os.path.join(work, "released")
+    for ours, released, ext in (("depth", "depth", "png"), ("rgb", "rgb", "png"),
+                                ("pose_gt", "annotated_poses", "txt"),
+                                ("hand_base", "hand_pose", "txt"),
+                                ("hand_q", "hand_q", "txt")):
+        os.makedirs(os.path.join(src, released))
+        for i in range(n_frames):
+            shutil.copyfile(os.path.join(seq_dir, ours, f"{i:06d}.{ext}"),
+                            os.path.join(src, released, f"{i + 7:06d}.{ext}"))
+    shutil.copyfile(os.path.join(seq_dir, "cam_K.txt"), os.path.join(src, "cam_K.txt"))
+    dst = os.path.join(work, "converted")
+    check(_script("convert_reference_dataset").convert(src, dst) == n_frames,
+          "the converter did not convert every frame")
+    written = RecordedSequence(seq_dir, use_native=False)
+    for use_native in (True, False):
+        seq = RecordedSequence(dst, use_native=use_native)
+        check(len(seq) == n_frames, f"{len(seq)} converted frames read back")
+        for i in range(n_frames):
+            a, b = seq[i], written[i]
+            check(all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+                "depth", "rgb", "pose_gt", "hand_base", "hand_q")),
+                f"converted frame {i} (use_native={use_native}) differs from phase 7's")
+    print(f"converter: {n_frames} frames in the released layout, converted by "
+          f"scripts/convert_reference_dataset.py, read through the port (native "
+          f"and Python) bitwise what phase 7 wrote", flush=True)
 
 
 def _demo_estimator(sq: dict, dev, **score):
@@ -1105,21 +1198,21 @@ def pixel_phase(sq: dict, knn_cuda, dev) -> None:
 
 
 class Library:
-    """BASELINE config 5 on the card: LIB objects at config 3's sizes (VGA,
-    2048 scene / 1024 model / 2048 render points, 512 particles x 10
-    iterations, T42 hand), object i built with ObjectModel(mesh, seed=i),
-    one splat-rendered frame per object with 1 mm noise. `shapes` cycles
-    over the library."""
+    """BASELINE config 5 on the card: `n` objects (LIB by default) at config
+    3's sizes (VGA, 2048 scene / 1024 model / 2048 render points, 512
+    particles x 10 iterations, T42 hand), object i built with
+    ObjectModel(mesh, seed=i), one splat-rendered frame per object with
+    1 mm noise. `shapes` cycles over the library."""
 
-    def __init__(self, sc: Scene, dev, shapes):
+    def __init__(self, sc: Scene, dev, shapes, n: int = LIB):
         import numpy as np
 
         from icra20_hand_object_pose_tpu_torch.datasets import render_frame_fast
         from icra20_hand_object_pose_tpu_torch.models import ObjectModel
         from icra20_hand_object_pose_tpu_torch.utils import meshio
 
-        self.sc, self.dev = sc, dev
-        self.shapes = [shapes[i % len(shapes)] for i in range(LIB)]
+        self.sc, self.dev, self.n = sc, dev, n
+        self.shapes = [shapes[i % len(shapes)] for i in range(n)]
         self.meshes = [meshio.make_test_object(s) for s in self.shapes]
         self.objs = [ObjectModel(m, model_points=1024, render_points=2048, seed=i,
                                  device=dev) for i, m in enumerate(self.meshes)]
@@ -1128,8 +1221,8 @@ class Library:
                               sc.cam, noise_sigma=0.001,
                               rng=np.random.default_rng(i), device="cpu")
             for i, m in enumerate(self.meshes)])
-        self.hand_bases = np.stack([sc.hand_base] * LIB)
-        self.hand_qs = np.stack([sc.hand_q] * LIB)
+        self.hand_bases = np.stack([sc.hand_base] * n)
+        self.hand_qs = np.stack([sc.hand_q] * n)
         self.dense = [m.sample_surface(8192, seed=123)[0] for m in self.meshes]
         self.limits = [0.1 * 1000.0 * o.diameter for o in self.objs]
 
@@ -1144,44 +1237,54 @@ class Library:
 
         st = sweep.init_state()
         gt = torch.as_tensor(self.sc.pose_gt, dtype=torch.float32, device=self.dev)
-        return st._replace(poses=gt.repeat(LIB, 1, 1), prev_poses=gt.repeat(LIB, 1, 1),
+        return st._replace(poses=gt.repeat(self.n, 1, 1),
+                           prev_poses=gt.repeat(self.n, 1, 1),
                            initialized=torch.ones_like(st.initialized),
                            fitness=torch.ones_like(st.fitness))
 
-    def step(self, sweep, st, label: str, profiled: bool = False, shared=False):
-        """One LibrarySweep.step on the static frames, timed to the poses on
-        the host (under torch.profiler when `profiled`); returns (state,
-        result, ms, ADD-S mm per object, the profile's numbers or None)."""
+    def step(self, sweep, st, label: str, profiled: bool = False, shared=False,
+             frames=None):
+        """One LibrarySweep.step on the static frames (or on `frames`, one
+        SyntheticFrame per object, against their ground truth), timed to the
+        poses on the host (under torch.profiler when `profiled`); returns
+        (state, result, ms, ADD-S mm per object, the profile's numbers or
+        None)."""
         import numpy as np
 
         from icra20_hand_object_pose_tpu_torch import evaluation
 
-        args = ((self.depths[0], self.hand_bases[0], self.hand_qs[0]) if shared
-                else (self.depths, self.hand_bases, self.hand_qs))
+        if frames is not None:
+            args = tuple(np.stack([getattr(f, k) for f in frames])
+                         for k in ("depth", "hand_base", "hand_q"))
+            gts = [f.pose_gt for f in frames]
+        else:
+            args = ((self.depths[0], self.hand_bases[0], self.hand_qs[0]) if shared
+                    else (self.depths, self.hand_bases, self.hand_qs))
+            gts = [self.sc.pose_gt] * self.n
 
         def run():
             st1, res = sweep.step(st, *args)
             return st1, res, res.poses.cpu().numpy()
 
         (st, res, poses), ms, prof_numbers = timed_call(run, self.dev, profiled)
-        check(poses.shape == (LIB, 4, 4) and bool(np.isfinite(poses).all()),
+        check(poses.shape == (self.n, 4, 4) and bool(np.isfinite(poses).all()),
               f"{label}: poses not finite")
-        adds = [1000.0 * evaluation.add_s_error(poses[o], self.sc.pose_gt, self.dense[o])
-                for o in range(LIB)]
+        adds = [1000.0 * evaluation.add_s_error(poses[o], gts[o], self.dense[o])
+                for o in range(self.n)]
         print(f"{label}: {ms:.2f} ms, ADD-S mm {[round(a, 3) for a in adds]}, "
               f"reinitialized {res.reinitialized.tolist()}, fitness "
               f"{[round(f, 4) for f in res.fitness.tolist()]}", flush=True)
         return st, res, ms, adds, prof_numbers
 
 
-def check_grouped(knn_cuda, kernel: str, path: str) -> None:
+def check_grouped(knn_cuda, kernel: str, path: str, n: int = LIB) -> None:
     """Every launch of `kernel` since the last reset took one query (scene)
-    block per object or one for all: LIB or 1 blocks, never one launch per
-    object."""
+    block per object or one for all: `n` (the library's objects) or 1
+    blocks, never one launch per object."""
     shapes = {"K1": knn_cuda.nn_gather_batched, "K2": knn_cuda.nn_batched,
               "K3": knn_cuda.nn_gn_batched}[kernel].shapes
     check(bool(shapes), f"{path} never launched {kernel}")
-    bad = [s for s in shapes if s[0] % LIB or s[1] not in (1, LIB)]
+    bad = [s for s in shapes if s[0] % n or s[1] not in (1, n)]
     check(not bad, f"{path} launched {kernel} per object, not per library: {bad}")
 
 
@@ -1190,13 +1293,14 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
     init_state(), 3 tracked steps, one tracked step under torch.profiler,
     and the 8-frame `_scene_prep` loop alone under torch.profiler. Returns
     the library (for the next phases), K1's launches, the results of steps
-    0 and 1 (phase 14 repeats them) and the tracked ms/step."""
+    0 and 1 (phase 14 repeats them), the tracked ms/step and the state
+    after step 3 (phase 15's mixed step starts from it)."""
     import torch
 
     from icra20_hand_object_pose_tpu_torch.models.estimator import _generator
     from icra20_hand_object_pose_tpu_torch.utils.profiling import profile_counts
 
-    lib = Library(sc, dev, ["box", "cylinder", "sphere", "ellipsoid"])
+    lib = Library(sc, dev, LIB_MESHES)
     sweep = lib.sweep()
     st = sweep.init_state()
     thr = sc.cfg.tracker.fitness_reinit_threshold
@@ -1265,7 +1369,8 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
           f"profiled step's wall time, {100.0 * prep_ops / prof['aten_calls']:.1f}% "
           f"of its ATen calls", flush=True)
     check_shapes(knn_cuda, "library path")
-    return dict(lib=lib, launches=n["K1"], steps=results[:2], step_ms=step_ms)
+    return dict(lib=lib, launches=n["K1"], steps=results[:2], step_ms=step_ms,
+                state=st)
 
 
 def shared_phase(sc: Scene, knn_cuda, dev) -> None:
@@ -1468,7 +1573,7 @@ def _mesh_cases(rank: int, world: int, port: int, backend: str) -> dict:
                             timeout=datetime.timedelta(seconds=300))
     try:
         sc = Scene(dev)
-        lib = Library(sc, dev, ["box", "cylinder", "sphere", "ellipsoid"])
+        lib = Library(sc, dev, LIB_MESHES)
         out = {}
         est = Estimator(sc.obj, sc.hand, sc.cfg, mesh=make_mesh(world, "p"))
         reset_counts(knn_cuda)
@@ -1614,16 +1719,319 @@ def bench_phase(knn_cuda, dev, single: dict | None) -> None:
           f"{sweep['ms_per_object_frame']} ms per object-frame", flush=True)
 
 
-def profile_phases(dev) -> None:
-    """scripts/profile_phases_torch.py's main on the card."""
+def blind_init_case(lib, sc: Scene, knn_cuda) -> dict:
+    """Phase 15, case 1: a sweep init through K2 (nn_fn) and one under
+    fused_gn (K3), each from init_state(): the init step, then one tracked
+    step. Returns the launches."""
+    import dataclasses
+
+    fused = dataclasses.replace(sc.cfg, icp=dataclasses.replace(sc.cfg.icp, fused_gn=True))
+    thr = sc.cfg.tracker.fitness_reinit_threshold
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    for kernel, sweep in (("K2", lib.sweep(nn_fn=knn_cuda.make_nn_fn())),
+                          ("K3", lib.sweep(cfg=fused))):
+        reset_counts(knn_cuda)
+        st, res0, _, a0, _ = lib.step(sweep, sweep.init_state(),
+                                      f"{kernel} sweep init step")
+        check(all(res0.reinitialized.tolist()), f"{kernel} sweep step 0 did not "
+              f"re-initialize every object: {res0.reinitialized.tolist()}")
+        _, res1, _, a1, _ = lib.step(sweep, st, f"{kernel} sweep step 1")
+        healthy = [f >= thr for f in res0.fitness.tolist()]
+        check(not any(r and h for r, h in zip(res1.reinitialized.tolist(), healthy)),
+              f"{kernel} sweep step 1 re-initialized a healthy object")
+        for o in range(lib.n):
+            check(a0[o] < lib.limits[o] or a1[o] < lib.limits[o],
+                  f"{kernel} sweep init missed object {o} ({lib.shapes[o]}): ADD-S "
+                  f"{a0[o]:.3f} / {a1[o]:.3f} mm, limit {lib.limits[o]:.3f} mm")
+        n, seen = counts(knn_cuda), launched(knn_cuda)
+        if kernel == "K2":
+            check(n["K2"] > 0 and n["K1"] == 0, f"K2 sweep init launches {n}")
+        init_scan = (lib.n * sc.cfg.tracker.reinit_particles, lib.n, 512, 512)
+        check(seen[kernel].get(init_scan, 0) > 0,
+              f"{kernel} never launched at the sweep init's scan {init_scan}: {seen}")
+        check_grouped(knn_cuda, kernel, f"{kernel} sweep init path", lib.n)
+        check_shapes(knn_cuda, f"{kernel} sweep init path")
+        total = add_launches(total, n)
+    return total
+
+
+def blind_mixed_case(lb: dict, knn_cuda) -> dict:
+    """Phase 15, case 2: phase 10's tracked state with the fitness of
+    objects 1 and 5 forced to 0: exactly those re-initialize, their results
+    bitwise an all-init program's from the same state and seeds, the
+    others' an all-track program's; the next state's bookkeeping as
+    `LibrarySweep._finish` promises. Returns the launches."""
+    import torch
+
+    lib, st = lb["lib"], lb["state"]
+    forced = [o in (1, 5) for o in range(lib.n)]
+    sweep = lib.sweep()
+    st = st._replace(fitness=torch.where(
+        torch.tensor(forced, device=lib.dev), torch.zeros_like(st.fitness), st.fitness))
+    key, keys_t, keys_i, prev_t, prev_i, need = sweep._prep(st)
+    reset_counts(knn_cuda)
+    nxt, res, _, adds, _ = lib.step(sweep, st, "mixed step")
+    n = counts(knn_cuda)
+    check(res.reinitialized.tolist() == forced,
+          f"mixed step re-initialized {res.reinitialized.tolist()}, not {forced}")
+    args = (lib.depths, lib.hand_bases, lib.hand_qs)
+    out_i = sweep._run(keys_i, args[0], prev_i, *args[1:], "init")
+    out_t = sweep._run(keys_t, args[0], prev_t, *args[1:], "track")
+    for o in range(lib.n):
+        ref = out_i if forced[o] else out_t
+        check(all(torch.equal(a[o], b[o]) for a, b in (
+            (res.poses, ref.pose), (res.fitness, ref.fitness),
+            (res.coverage, ref.coverage))),
+            f"mixed step object {o} differs from the all-{'init' if forced[o] else 'track'} "
+            f"program's")
+    tracked = ~need
+    check(nxt.key == key and nxt.frame_idx == st.frame_idx + 1
+          and bool(nxt.initialized.all()) and torch.equal(nxt.prev_poses, st.poses)
+          and torch.equal(nxt.pose_tracked, tracked)
+          and torch.equal(nxt.vel_ok, tracked & st.pose_tracked)
+          and torch.equal(nxt.poses, res.poses) and torch.equal(nxt.fitness, res.fitness),
+          "the mixed step's next state breaks LibrarySweep._finish's bookkeeping")
+    print(f"mixed step: objects 1 and 5 bitwise the all-init program's, the rest "
+          f"the all-track program's; vel_ok {nxt.vel_ok.tolist()}; launches {n}",
+          flush=True)
+    return n
+
+
+def blind_single_case(lib, sc: Scene, knn_cuda, variants) -> dict:
+    """Phase 15, case 3: one tracked step's program from the ground truth
+    (`_prep` then `_run`, as `step` runs it) per configuration in
+    `variants`; object 0 and the last bitwise their single estimates.
+    Returns the launches of the sweep programs and the single estimates."""
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch import evaluation
+    from icra20_hand_object_pose_tpu_torch.models import Estimator
+
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    for name, cfg, kw in variants:
+        sweep = lib.sweep(cfg=cfg, **kw)
+        _, keys_t, _, prev_t, _, _ = sweep._prep(lib.seeded(sweep))
+        reset_counts(knn_cuda)
+        out, ms, _ = timed_call(lambda: sweep._run(
+            keys_t, lib.depths, prev_t, lib.hand_bases, lib.hand_qs, "track"), lib.dev)
+        adds = [1000.0 * evaluation.add_s_error(out.pose[o].cpu().numpy(), sc.pose_gt,
+                                                lib.dense[o]) for o in range(lib.n)]
+        check(max(adds) < 5.0, f"O = {lib.n} {name}: ADD-S {adds} >= 5 mm")
+        check_grouped(knn_cuda, {"nn_fn": "K2", "fused_gn": "K3"}.get(name, "K1"),
+                      f"O = {lib.n} {name} path", lib.n)
+        for o in (0, lib.n - 1):
+            single = Estimator(lib.objs[o], sc.hand, cfg, **kw).estimate(
+                lib.depths[o], prev_t[o], lib.hand_bases[o], lib.hand_qs[o],
+                key=keys_t[o], mode="track")
+            for field, a, b in zip(out._fields, out, single):
+                check((a is None) == (b is None) and (a is None or torch.equal(a[o], b)),
+                      f"O = {lib.n} {name}: object {o}'s {field} differs from its "
+                      f"single estimate")
+        print(f"O = {lib.n} {name}: tracked step {ms:.2f} ms, ADD-S mm max "
+              f"{max(adds):.3f}; objects 0 and {lib.n - 1} bitwise their single "
+              f"estimates (every result field)", flush=True)
+        check_shapes(knn_cuda, f"O = {lib.n} {name} path")
+        total = add_launches(total, counts(knn_cuda))
+    return total
+
+
+def blind_pixel_case(lib, sc: Scene, knn_cuda) -> dict:
+    """Phase 15, case 4: the library of `lib` in pixel mode, 2 tracked
+    steps from the ground truth: under 5 mm, no re-init, object 0 of the
+    first step bitwise its single estimate; peak device memory."""
+    import dataclasses
+
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.models import Estimator
+
+    cfg = dataclasses.replace(sc.cfg, score=dataclasses.replace(sc.cfg.score, mode="pixel"))
+    sweep = lib.sweep(cfg=cfg)
+    st = lib.seeded(sweep)
+    _, keys_t, _, prev_t, _, _ = sweep._prep(st)
+    reset_counts(knn_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(2):
+        st, res, t, adds, _ = lib.step(sweep, st, f"O = {lib.n} pixel-mode step {i}")
+        ms.append(t)
+        check(not any(res.reinitialized.tolist()) and max(adds) < 5.0,
+              f"O = {lib.n} pixel-mode step {i}: reinit {res.reinitialized.tolist()}, "
+              f"ADD-S {adds}")
+        if i == 0:
+            first = res
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    single = Estimator(lib.objs[0], sc.hand, cfg).estimate(
+        lib.depths[0], prev_t[0], lib.hand_bases[0], lib.hand_qs[0], key=keys_t[0],
+        mode="track")
+    check(torch.equal(first.poses[0], single.pose) and torch.equal(first.fitness[0], single.fitness)
+          and torch.equal(first.coverage[0], single.coverage),
+          f"O = {lib.n} pixel mode: object 0 differs from its single estimate")
+    n = counts(knn_cuda)
+    print(f"O = {lib.n} pixel mode: {ms[0]:.2f}, {ms[1]:.2f} ms/step; object 0 of "
+          f"step 0 bitwise its single estimate (pose, fitness, coverage); peak "
+          f"device memory {peak:.2f} GiB; launches {n}", flush=True)
+    check_shapes(knn_cuda, f"O = {lib.n} pixel-mode path")
+    return n
+
+
+def prior_branch(sweep, st) -> str:
+    """Which tracked-mode prior `LibrarySweep._prep` builds from `st`,
+    checked against the prior it returns: the pose, the pose tiled over
+    the hypothesis slots, the slots themselves, or the constant-velocity
+    pair (predicted, pose)."""
+    import torch
+
+    tr = sweep.cfg.tracker
+    prev_t = sweep._prep(st)[3]
+    if tr.n_hypotheses > 1 and st.hyp_poses is not None:
+        want = torch.where(torch.isfinite(st.hyp_fitness)[..., None, None],
+                           st.hyp_poses, st.poses[:, None])
+        name = "hypothesis slots"
+    elif tr.n_hypotheses > 1:
+        want, name = st.poses[:, None].repeat(1, tr.n_hypotheses, 1, 1), "pose tiled"
+    elif tr.motion_prior > 0.0:
+        check(prev_t.shape[1] == 2 and torch.equal(prev_t[:, 1], st.poses),
+              "the motion prior's second slot is not the pose")
+        moved = (prev_t[:, 0] != st.poses).flatten(1).any(1)
+        check(torch.equal(moved & ~st.vel_ok, torch.zeros_like(moved)),
+              "the motion prior moved an object without a velocity")
+        return (f"constant velocity (vel_ok {st.vel_ok.tolist()}, predicted pose "
+                f"moved for {moved.sum().item()} objects)")
+    else:
+        want, name = st.poses, "pose"
+    check(torch.equal(prev_t, want), f"the {name} prior is not what _prep built")
+    return name
+
+
+def blind_motion_case(lib, sc: Scene, knn_cuda, dev) -> dict:
+    """Phase 15, case 5: each object its own moving sequence
+    (generate_sequence on the card, SyntheticSequenceConfig's defaults, seed
+    o, 4 frames), 4 steps from init_state(); then from the state after step
+    1, frames 2-3 under TrackerConfig(motion_prior=1.0) and under
+    n_hypotheses=2, each step's prior branch printed."""
+    import dataclasses
+
+    import numpy as np
+
+    from icra20_hand_object_pose_tpu_torch.datasets import (
+        SyntheticSequenceConfig, generate_sequence,
+    )
+
+    seqs = [generate_sequence(m, sc.hand, SyntheticSequenceConfig(
+        n_frames=4, camera=sc.cam, seed=o), device=dev) for o, m in enumerate(lib.meshes)]
+    frames = [[s[i] for s in seqs] for i in range(4)]
+    sweep = lib.sweep()
+    st = sweep.init_state()
+    reset_counts(knn_cuda)
+    adds = []
+    for i in range(4):
+        st, res, _, a, _ = lib.step(sweep, st, f"motion step {i}", frames=frames[i])
+        adds.append(a)
+        check(res.reinitialized.tolist() == [i == 0] * lib.n,
+              f"motion step {i}: reinitialized {res.reinitialized.tolist()}")
+        if i == 1:
+            after1 = st
+    for o in range(lib.n):
+        check(adds[0][o] < lib.limits[o] or adds[1][o] < lib.limits[o],
+              f"motion init missed object {o}: ADD-S {adds[0][o]:.3f} / {adds[1][o]:.3f} mm")
+        check(max(adds[2][o], adds[3][o]) < 5.0,
+              f"motion object {o}: steps 2-3 ADD-S {adds[2][o]:.3f}, {adds[3][o]:.3f} mm")
+    for label, tracker_kw in (("motion_prior=1.0", dict(motion_prior=1.0)),
+                              ("n_hypotheses=2", dict(n_hypotheses=2))):
+        cfg = dataclasses.replace(sc.cfg, tracker=dataclasses.replace(
+            sc.cfg.tracker, **tracker_kw))
+        sweep, st = lib.sweep(cfg=cfg), after1
+        for i in (2, 3):
+            branch = prior_branch(sweep, st)
+            st, res, _, a, _ = lib.step(sweep, st, f"{label} step on frame {i}",
+                                        frames=frames[i])
+            check(not any(res.reinitialized.tolist()) and max(a) < 5.0
+                  and bool(np.isfinite(res.fitness.cpu().numpy()).all()),
+                  f"{label} step on frame {i}: reinit {res.reinitialized.tolist()}, "
+                  f"ADD-S {a}")
+            print(f"{label} step on frame {i}: _prep's prior branch: {branch}",
+                  flush=True)
+    n = counts(knn_cuda)
+    check_shapes(knn_cuda, "motion path")
+    print(f"motion: launches {n}", flush=True)
+    return n
+
+
+def blind_phase(lb: dict, sc: Scene, knn_cuda, dev) -> dict:
+    """Phase 15: the sweep paths no other phase runs on the card (module
+    docstring). Returns each kernel's launches over the phase."""
+    import dataclasses
+
+    lib8 = lb["lib"]
+    fused = dataclasses.replace(sc.cfg, icp=dataclasses.replace(sc.cfg.icp, fused_gn=True))
+    variants = [("default", sc.cfg, {}), ("nn_fn", sc.cfg, dict(nn_fn=knn_cuda.make_nn_fn())),
+                ("fused_gn", fused, {})]
+    total = blind_init_case(lib8, sc, knn_cuda)
+    total = add_launches(total, blind_mixed_case(lb, knn_cuda))
+    lib2 = Library(sc, dev, LIB_MESHES, n=2)
+    for lib in (lib8, lib2, Library(sc, dev, LIB_MESHES, n=32)):
+        total = add_launches(total, blind_single_case(lib, sc, knn_cuda, variants))
+    total = add_launches(total, blind_pixel_case(lib2, sc, knn_cuda))
+    total = add_launches(total, blind_motion_case(lib8, sc, knn_cuda, dev))
+    print(f"blind paths: launches {total}", flush=True)
+    return total
+
+
+def _script(name: str):
+    """scripts/<name>.py of this checkout, loaded as a module."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "profile_phases_torch.py")
-    spec = importlib.util.spec_from_file_location("profile_phases_torch", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.main(device=dev)
+    return mod
+
+
+def scripts_phase(knn_cuda) -> None:
+    """Phase 16: scripts/calibrate_base_agree_torch.py at --trials 2 and
+    scripts/ab_scan_icp_torch.py at --frames 2 --seeds 1 --only base, each
+    in-process on the card with its standard output captured: the
+    reference's JSON keys, every number finite, each within 60 s."""
+    import contextlib
+    import io
+    import math
+
+    runs = (("calibrate_base_agree_torch", ["--trials", "2"]),
+            ("ab_scan_icp_torch", ["--frames", "2", "--seeds", "1", "--only", "base"]))
+    for name, argv in runs:
+        mod, out = _script(name), io.StringIO()
+        reset_counts(knn_cuda)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main(argv)
+        secs = time.perf_counter() - t0
+        text = out.getvalue()
+        print(f"{name} {' '.join(argv)} ({secs:.1f} s): {text.strip()}", flush=True)
+        check(secs < 60.0, f"{name} took {secs:.1f} s, not under 60 s")
+        if name.startswith("calibrate"):
+            rec = json.loads(text)
+            check(set(rec) == {"calibrated", "miscalibrated"} and all(
+                set(r) == CALIBRATE_KEYS and len(r["gains"]) == 2 for r in rec.values()),
+                f"{name} printed {sorted(rec)}")
+            numbers = [v for r in rec.values() for k, v in r.items() if k != "gains"]
+            numbers += [g for r in rec.values() for g in r["gains"]]
+        else:
+            lines = text.strip().splitlines()
+            check(len(lines) == 1, f"{name} printed {len(lines)} lines")
+            rec = json.loads(lines[0])
+            check(set(rec) == AB_SCAN_KEYS and rec["n_err"] == 2, f"{name} printed {rec}")
+            numbers = [v for v in rec.values() if isinstance(v, (int, float))]
+            check(counts(knn_cuda)["K1"] > 0, f"{name} never launched K1")
+            check_shapes(knn_cuda, f"{name} path")
+        check(all(math.isfinite(v) for v in numbers), f"{name}: a number is not finite")
+
+
+def profile_phases(dev) -> None:
+    """scripts/profile_phases_torch.py's main on the card."""
+    _script("profile_phases_torch").main(device=dev)
 
 
 def run_phase(name: str, fn, *args):
@@ -1683,6 +2091,7 @@ def main(argv: list[str]) -> int:
             run_phase("12 library kernels", library_kernels_phase, lb, sc, knn_cuda,
                       dev, work)
         run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, None)
+        run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
         print(smi, flush=True)
         return 0
     k1, single = run_phase("4 track", track_phase, sc, knn_cuda)
@@ -1700,6 +2109,8 @@ def main(argv: list[str]) -> int:
                             K1=lb["launches"])
     run_phase("13 bench", bench_phase, knn_cuda, dev, single)
     mesh_launches = run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, single)
+    blind_launches = run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
+    run_phase("16 scripts", scripts_phase, knn_cuda)
 
     names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)
@@ -1708,6 +2119,7 @@ def main(argv: list[str]) -> int:
         "replaces": REPLACES[k], "launches": launches[k],
         "library_sweep_launches": lib_launches[k],
         "mesh_launches": mesh_launches[k],
+        "blind_path_launches": blind_launches[k],
         **stats[k], "library_ms": None,
     } for k in ("K1", "K2", "K3")]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -421,7 +421,9 @@ def nn_gn_batched(
     returns (H [P,6,6], g [P,6], wsum [P], hits [P], wrr [P]). With G
     scenes, particle p is matched against scene p // (P // G). CPU tensors
     take `nn_gn_plain`; CUDA tensors launch the kernel once with `plan`
-    (default `gn_plan` of the shapes)."""
+    (default `gn_plan` of one group's shapes, P // G particles: the plan
+    sets the order of each particle's sums, so a group launched alone, or
+    in a library of any size, gets the same bits)."""
     if scene_c.dim() not in (2, 3) or ref_c.dim() != 3:
         raise ValueError("scene_c must be [Ns,3] or [G,Ns,3] and ref_c [P,Nm,3]")
     if scene_c.dim() == 2:
@@ -440,7 +442,7 @@ def nn_gn_batched(
            ("scene_w", scene_w, (G, Ns), f32),
            ("ref_c", ref_c, (P, Nm, 3), f32),
            ("ref_normals", ref_normals, (P, Nm, 3), f32))
-    plan = plan or gn_plan(P, Ns, Nm)
+    plan = plan or gn_plan(P // G, Ns, Nm)
     if plan.width != WIDTH:
         raise ValueError(f"K3 runs groups of {WIDTH} threads, not {plan.width}")
     H = torch.empty((P, 6, 6), dtype=f32, device=device)

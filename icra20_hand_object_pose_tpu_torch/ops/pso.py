@@ -184,7 +184,7 @@ def snap_to_branch(
     (an exact twin renders the same depth, so the branch is convention).
     A library's groups are identity-padded to one size: the first of equal
     branches wins, so the padding never does."""
-    cands = pose[..., None, :, :] @ symmetries
+    cands = se3.compose(pose[..., None, :, :], symmetries)
     return pick(cands, torch.argmin(
         _mean_displacement(cands, prior_pose, model_pts), dim=-1))
 

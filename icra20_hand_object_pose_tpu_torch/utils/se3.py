@@ -121,7 +121,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
                     (1.0 - torch.cos(theta)) / torch.clamp(theta2, min=_EPS))
     W = hat(w)
     I = _eye(3, W).expand(W.shape)
-    return I + a[..., None, None] * W + b[..., None, None] * (W @ W)
+    return I + a[..., None, None] * W + b[..., None, None] * _mm(W, W)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -162,12 +162,30 @@ def translation(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3, 3]
 
 
+def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for small matrices, [..., n, k] x [..., k, m], as the k
+    broadcast products summed left to right. A batched GEMM's CUDA kernel,
+    and with it the rounding, follows the batch count (a library of 32
+    objects gave object 0 other bits than its single estimate); these
+    elementwise ops give every matrix the same bits at any batch size."""
+    p = A[..., :, :, None] * B[..., None, :, :]     # [..., n, k, m]
+    out = p[..., 0, :]
+    for i in range(1, A.shape[-1]):
+        out = out + p[..., i, :]
+    return out
+
+
 def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    return A @ B
+    return _mm(A, B)
 
 
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return (M @ v[..., None])[..., 0]
+    """M @ v for [..., n, k] x [..., k], summed left to right (see _mm)."""
+    p = M * v[..., None, :]                         # [..., n, k]
+    out = p[..., 0]
+    for i in range(1, M.shape[-1]):
+        out = out + p[..., i]
+    return out
 
 
 def inverse(T: torch.Tensor) -> torch.Tensor:
@@ -214,7 +232,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
         (theta - torch.sin(theta)) / torch.clamp(theta2 * theta, min=_EPS),
     )
     I = _eye(3, W).expand(W.shape)
-    V = I + b[..., None, None] * W + c[..., None, None] * (W @ W)
+    V = I + b[..., None, None] * W + c[..., None, None] * _mm(W, W)
     return make_pose(R, _matvec(V, v))
 
 
@@ -233,13 +251,13 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
         / torch.clamp(theta2, min=_EPS),
     )
     I = _eye(3, W).expand(W.shape)
-    Vinv = I - 0.5 * W + cot_term[..., None, None] * (W @ W)
+    Vinv = I - 0.5 * W + cot_term[..., None, None] * _mm(W, W)
     return torch.cat([w, _matvec(Vinv, translation(T))], dim=-1)
 
 
 def apply_twist(xi: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Left-multiply update: exp(xi) @ T."""
-    return se3_exp(xi) @ T
+    return compose(se3_exp(xi), T)
 
 
 def apply_twist_about(xi: torch.Tensor, T: torch.Tensor,
@@ -248,7 +266,7 @@ def apply_twist_about(xi: torch.Tensor, T: torch.Tensor,
     rotation part of xi acts about `anchor` [..,3]."""
     E = se3_exp(xi)
     Rw, vw = rotation(E), translation(E)
-    R = Rw @ rotation(T)
+    R = _mm(Rw, rotation(T))
     t = _matvec(Rw, translation(T) - anchor) + anchor + vw
     return make_pose(R, t)
 
@@ -308,7 +326,7 @@ def super_fibonacci_rotations(n: int, gen=None, *, device=None) -> torch.Tensor:
     )
     rot = quat_to_matrix(q)
     if gen is not None:
-        rot = random_rotation(gen)[..., None, :, :] @ rot
+        rot = _mm(random_rotation(gen)[..., None, :, :], rot)
     return rot
 
 

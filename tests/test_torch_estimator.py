@@ -152,7 +152,8 @@ def test_port_never_imports_jax():
         "from icra20_hand_object_pose_tpu_torch.utils import profiling\n"
         "import importlib.util\n"
         "for name in ('profile_phases_torch', 'eval_occlusion_torch',\n"
-        "             'eval_accuracy_torch'):\n"
+        "             'eval_accuracy_torch', 'calibrate_base_agree_torch',\n"
+        "             'ab_scan_icp_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(name, f'scripts/{name}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -174,15 +174,15 @@ def test_cuda_gn_kernel_matches_plain(cuda_device, P, Ns, Nm, ties, plan, G):
     if G is not None and G > 1:
         # a group's sums hold its own scene only: the nearly empty last
         # group stays at 5 points of weight or under, and each group alone
-        # (an ungrouped launch on its particles) gives the same bits
+        # (an ungrouped launch on its particles, each with its default plan
+        # when none is given) gives the same bits
         per = P // G
         assert bool((wsum[-per:] <= 5.0).all())
         for o in range(G):
             sl = slice(o * per, (o + 1) * per)
             alone = knn_cuda.nn_gn_batched(
                 args[0][o], args[1][o], args[2][o], args[3][sl].contiguous(),
-                args[4][sl].contiguous(), **gates,
-                plan=plan or knn_cuda.gn_plan(P, Ns, Nm))
+                args[4][sl].contiguous(), **gates, plan=plan)
             assert all(torch.equal(x[sl], y)
                        for x, y in zip((H, g, wsum, hits, wrr), alone))
 

@@ -94,3 +94,31 @@ def test_build_compiles_only_cu_files():
     assert sorted(p.name for p in knn_cuda.CSRC.glob("*.cu")) == ["nn_gather.cu", "nn_gn.cu"]
     for src in knn_cuda.CSRC.glob("*.cu"):
         assert '#include "nn_search.cuh"' in src.read_text()
+
+
+@pytest.mark.parametrize("P,G", [(256, 8), (1024, 32), (16384, 32), (36, 2)])
+def test_k3_default_plan_follows_one_group(monkeypatch, P, G):
+    """K3's default plan sets the order of each particle's sums, so it is
+    the plan of one group's P // G particles: a library's grouped launch and
+    a group launched alone run the same plan (the wrapper's launch recorded,
+    no card needed)."""
+    import torch
+
+    import collections
+
+    plans = []
+    monkeypatch.setattr(knn_cuda.nn_gn_batched, "launches", 0)
+    monkeypatch.setattr(knn_cuda.nn_gn_batched, "shapes", collections.Counter())
+    monkeypatch.setattr(knn_cuda, "_route", lambda *a, **k: True)
+    monkeypatch.setattr(knn_cuda, "_entry_points", lambda: (None, None, None))
+    monkeypatch.setattr(knn_cuda, "_launch",
+                        lambda kernel, device, fn, *args: plans.append(args[16:19]))
+    Ns, Nm, per = 512, 256, P // G
+    z = torch.zeros
+    gates = dict(maxd2=4e-4, min_cos=0.5)
+    knn_cuda.nn_gn_batched(z(G, Ns, 3), z(G, Ns, 3), z(G, Ns), z(P, Nm, 3), z(P, Nm, 3),
+                           **gates)
+    knn_cuda.nn_gn_batched(z(Ns, 3), z(Ns, 3), z(Ns), z(per, Nm, 3), z(per, Nm, 3),
+                           **gates)
+    want = knn_cuda.gn_plan(per, Ns, Nm)
+    assert plans == [(want.q, want.groups, want.scene_split)] * 2

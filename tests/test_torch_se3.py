@@ -103,3 +103,27 @@ def test_add_metrics():
            jse3.add_s_error(Ta, Tb, jnp.asarray(pts)))
     _close(se3.add_error(_t(Ta), _t(Tb), _t(pts)),
            jse3.add_error(Ta, Tb, jnp.asarray(pts)))
+
+
+
+@pytest.mark.parametrize("fn", ["compose", "inverse", "se3_exp", "se3_log", "apply_twist"])
+def test_small_products_are_batch_invariant(fn):
+    """The small matrix products are elementwise sums in a fixed order, not a
+    batched GEMM (on CUDA its kernel, and the rounding, follows the batch
+    count): row i of a batch is bitwise the call on row i alone."""
+    xi = _t(_twists(33, seed=4))
+    T = se3.se3_exp(_t(_twists(33, seed=5)))
+    args = {"compose": (T, se3.inverse(T)), "inverse": (T,), "se3_exp": (xi,),
+            "se3_log": (T,), "apply_twist": (xi, T)}[fn]
+    out = getattr(se3, fn)(*args)
+    for i in (0, 17, 32):
+        assert torch.equal(out[i], getattr(se3, fn)(*(a[i:i + 1] for a in args))[0])
+
+
+def test_compose_sums_its_products_left_to_right():
+    A = se3.se3_exp(_t(_twists(33, seed=4)))
+    B = se3.se3_exp(_t(_twists(33, seed=5)))
+    want = A[..., :, 0, None] * B[..., None, 0, :]
+    for k in range(1, 4):
+        want = want + A[..., :, k, None] * B[..., None, k, :]
+    assert torch.equal(se3.compose(A, B), want)
