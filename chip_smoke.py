@@ -30,7 +30,8 @@ Phases, in order; any failure raises and the script exits non-zero:
        library of 8 x 128 particles (1024 and 64 x 512 x 256, a query per
        object), and at the mesh's per-shard shapes of phase 14
        (SHARD_SHAPES), and at the tracked step's shapes of phase 15's
-       libraries of 2 and 32 objects (BLIND_SHAPES); then the tie cases (every reference point duplicated across
+       libraries of 2 and 32 objects (BLIND_SHAPES), and at phase 17's
+       shapes (GATE_SHAPES); then the tie cases (every reference point duplicated across
        the ranges a block's thread groups split the cloud into), ungrouped
        and grouped: the same indices, d2 bitwise equal, matched points and
        normals bitwise equal (the plain version of a shape above 2^27
@@ -168,7 +169,34 @@ Phases, in order; any failure raises and the script exits non-zero:
   16. scripts, in-process on the card: calibrate_base_agree_torch.py
      --trials 2 and ab_scan_icp_torch.py --frames 2 --seeds 1 --only base:
      each the reference's JSON keys, every number finite, under 60 s;
-  17. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  17. accuracy gates: every case of the reference's six statistical test
+     files (tests/torch_gate_cases.py: the occlusion levels, the pinned
+     accuracy cases, the realistic tracking, init and excursion cases, the
+     sensor model, both base-refine regimes, the global inits, the slide
+     cases, the concave mug) on the card at seeds 0 .. S_card - 1 (at
+     least GATE_MIN_SEEDS, more while 1.5x a seed still fits the
+     phase's budget), each
+     printed as passes / S_card with the median and worst of its first
+     asserted statistic beside the reference's passes / S and the same
+     statistics (tests/torch_gate_reference.json, the JAX package on the
+     CPU over S = 8 seeds). The gate: (1) pooled over every case, the
+     port's pass count must not fall below the reference's pooled pass
+     rate by a one-sided Fisher exact test at p < 0.01
+     (scipy.stats.fisher_exact, alternative "less"); (2) no case that the
+     reference passed on all S of its seeds may fail on a majority of the
+     card's seeds. Nothing else is a pass/fail threshold. (b) phase 7's
+     sequence tracked again (a cold start, the demo's estimator) and held
+     against the JAX package's two streams of the same sequence (keys 0
+     and 1, tests/torch_ref_pose_stream.json): with d(a, b) the mean over
+     frames of the ADD-S between two streams on the dense cloud,
+     d(port, ref0) <= k d(ref1, ref0) + m, k and m as the reference
+     measured them (pose_stream in torch_gate_reference.json); BASELINE's
+     reading (mean ADD-S against the ground truth within 1 mm of the
+     reference's) is printed, not gated. Every launch at a checked shape
+     (GATE_SHAPES), launches by kernel and shape printed, the phase's
+     seconds printed against its budget; a {"gates": ...} JSON line holds
+     the per-case table;
+  18. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Every phase prints its seconds.
 
@@ -179,8 +207,9 @@ carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6), and its
 K3: their step of phase 12), its `mesh_launches` each kernel's launches
 in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
 it; K2 and K3 read 0 unless a mesh path launched them), its
-`blind_path_launches` each kernel's launches over phase 15; `shapes` holds
-every timed shape's numbers.
+`blind_path_launches` each kernel's launches over phase 15, its
+`gate_launches` those over phase 17; `shapes` holds every timed shape's
+numbers.
 Phases 7-9 and 11 run K1 too and print their own counts. Each path phase
 also reads the (P, blocks, Ns, Nm) of every launch it made and fails if
 phase 3 did not hold that kernel against its plain version at that shape.
@@ -243,6 +272,22 @@ SHARD_SHAPES = [(256, 1, 512, 256), (16, 1, 512, 256),
                 (HALF * 18, HALF, 2048, 1024), (HALF * 1024, HALF, 512, 512),
                 (HALF * 17, HALF, 2048, 1024),
                 (LIB * 256, LIB, 512, 256), (LIB * 16, LIB, 512, 256)]
+# phase 17's launches (P, B, Ns, Nm), K1 alone: the reference gates' 320 x
+# 240 configuration (1024 scene points, 256 particles, 512 at init) tracked
+# (in-scan, explorer, polish) and at init (in-scan and prescreen support,
+# polish), and the concave mug's 160 x 120 one (768 scene / 256 model
+# points, 32 particles, 64 at init)
+GATE_SHAPES = [(256, 1, 512, 256), (16, 1, 512, 256), (18, 1, 1024, 1024),
+               (512, 1, 512, 512), (17, 1, 1024, 1024),
+               (2, 1, 512, 256), (18, 1, 768, 256), (64, 1, 512, 256),
+               (17, 1, 768, 256)]
+# phase 17: the least number of seeds per case, the most, and the phase's
+# budget in seconds: one more seed runs only while 1.5x the slowest seed so
+# far still fits (seeds took 44-50 s on one H100 host; a slower host must
+# not run past the budget)
+GATE_MIN_SEEDS, GATE_MAX_SEEDS, GATE_BUDGET_S, GATE_SEED_MARGIN = 3, 8, 200.0, 1.5
+# the one-sided Fisher test's level of the pooled gate
+GATE_P = 0.01
 # tie cases, checked only (P, Pq, Ns, Nm): the polish shape and the ragged
 # one with every reference point duplicated across the split ranges (see
 # `_ties`), with a shared query and with one per group
@@ -537,8 +582,8 @@ def nn_phase(knn_cuda, dev, gather: bool, grouped: bool = True) -> dict:
     max_err, res = 0.0, {}
     cases = [(P, Pq, Ns, Nm) for P, Ns, Nm in NN_SHAPES for Pq in (1, P)]
     # (a shape on two lists runs once)
-    for P, Pq, Ns, Nm in dict.fromkeys(cases + (NN_GROUPED + SHARD_SHAPES if grouped
-                                                else [])):
+    for P, Pq, Ns, Nm in dict.fromkeys(cases + (NN_GROUPED + SHARD_SHAPES + GATE_SHAPES
+                                                if grouped else [])):
         run, plain, err = nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm)
         max_err = max(max_err, err)
         t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
@@ -782,13 +827,14 @@ def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
     """Every (P, B, Ns, Nm) launched since the last reset (or in `seen`, a
     `launched` result; B the query or scene blocks) must be one that the
     kernel phases held against the plain version (K1/K2: NN_SHAPES at B = 1
-    and B = P, NN_GROUPED and SHARD_SHAPES; K3: GN_SHAPES at B = 1, and
+    and B = P, NN_GROUPED, SHARD_SHAPES and GATE_SHAPES; K3: GN_SHAPES at
+    B = 1, and
     GN_GROUPED); prints the launches by shape."""
     seen = launched(knn_cuda) if seen is None else seen
     print(f"{path} launches by (P, blocks, Ns, Nm): "
           f"{ {k: v for k, v in seen.items() if v} }", flush=True)
     nn_ok = ({(P, B, Ns, Nm) for P, Ns, Nm in NN_SHAPES for B in (1, P)}
-             | set(NN_GROUPED) | set(SHARD_SHAPES))
+             | set(NN_GROUPED) | set(SHARD_SHAPES) | set(GATE_SHAPES))
     gn_ok = {(P, 1, Ns, Nm) for P, Ns, Nm in GN_SHAPES} | set(GN_GROUPED)
     for k, shapes in seen.items():
         unchecked = set(shapes) - (gn_ok if k == "K3" else nn_ok)
@@ -2029,6 +2075,148 @@ def scripts_phase(knn_cuda) -> None:
         check(all(math.isfinite(v) for v in numbers), f"{name}: a number is not finite")
 
 
+def _tests_module(name: str):
+    """tests/<name>.py of this checkout (a module that imports no jax)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import importlib
+
+    return importlib.import_module(name)
+
+
+def _reference_json(name: str) -> dict:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           name)) as f:
+        return json.load(f)
+
+
+def pose_stream_case(sq: dict, dev, rule: dict) -> dict:
+    """Phase 17 (b): phase 7's sequence tracked from a cold start with the
+    demo's estimator, against the JAX package's streams 0 and 1 of it."""
+    import numpy as np
+
+    from icra20_hand_object_pose_tpu_torch import evaluation, parity
+    from icra20_hand_object_pose_tpu_torch.models import Tracker
+
+    ref = _reference_json("torch_ref_pose_stream.json")
+    check({k: ref["sequence"][k] for k in DEMO} == DEMO,
+          f"the reference streams are of {ref['sequence']}, not phase 7's {DEMO}")
+    seq, dense = sq["seq"], sq["dense"]
+    tracker = Tracker(_demo_estimator(sq, dev))
+    port = [tracker.step(fr.depth, fr.hand_base, fr.hand_q).pose.cpu().numpy()
+            for fr in seq]
+    check(all(np.isfinite(p).all() for p in port), "phase 17 stream: a pose is not finite")
+    ref0, ref1 = ([np.asarray(p, np.float64) for p in ref["streams"][k]] for k in "01")
+    d = {name: 1000.0 * parity.compare_pose_sequences(a, ref0, dense).add_s_mean
+         for name, a in (("port", port), ("ref1", ref1))}
+    limit = rule["k"] * d["ref1"] + rule["m_mm"]
+    gt = [seq[i].pose_gt for i in range(len(seq))]
+    adds = {name: 1000.0 * float(np.mean([evaluation.add_s_error(p, g, dense)
+                                          for p, g in zip(s, gt)]))
+            for name, s in (("port", port), ("ref0", ref0), ("ref1", ref1))}
+    print(f"17b pose stream (phase 7's sequence, VGA, 512 particles, cold start): "
+          f"d(port, ref0) {d['port']:.3f} mm, d(ref1, ref0) {d['ref1']:.3f} mm, "
+          f"limit k d(ref1, ref0) + m = {rule['k']} x {d['ref1']:.3f} + "
+          f"{rule['m_mm']:.3f} = {limit:.3f} mm; BASELINE's reading (not a gate): "
+          f"mean ADD-S against the ground truth port {adds['port']:.3f}, ref0 "
+          f"{adds['ref0']:.3f}, ref1 {adds['ref1']:.3f} mm (port - ref0 "
+          f"{adds['port'] - adds['ref0']:+.3f} mm)", flush=True)
+    check(d["port"] <= limit, f"the port's stream is {d['port']:.3f} mm from the "
+          f"reference's, beyond k d(ref1, ref0) + m = {limit:.3f} mm")
+    return dict(d_port_ref0_mm=d["port"], d_ref1_ref0_mm=d["ref1"], limit_mm=limit,
+                adds_mm=adds)
+
+
+def _summary(stat_of, op: str, values: list) -> tuple:
+    """(median, worst) of a statistic: worst is the largest for a `<`
+    assertion, else the smallest."""
+    import numpy as np
+
+    vals = [stat_of(v) for v in values]
+    return float(np.median(vals)), float(max(vals) if op == "<" else min(vals))
+
+
+def gates_phase(sq: dict, knn_cuda, dev) -> dict:
+    """Phase 17 (module docstring): every case of the reference's accuracy
+    gates at S_card seeds, judged by pass rate against the reference's
+    rate over its seeds, and phase 7's pose stream against the reference's.
+    Returns each kernel's launches over the phase."""
+    import math
+
+    from scipy.stats import fisher_exact
+
+    t0 = time.perf_counter()
+    G = _tests_module("torch_gate_cases")
+    table = _reference_json("torch_gate_reference.json")
+    check(set(table["cases"]) == set(G.CASES),
+          "tests/torch_gate_reference.json does not hold every case")
+    backend = G.PortBackend(dev)
+    reset_counts(knn_cuda)
+    stream = pose_stream_case(sq, dev, table["pose_stream"])
+    runs = {c: [] for c in G.CASES}
+    seed_s = []
+    while len(seed_s) < GATE_MAX_SEEDS:
+        s = len(seed_s)
+        ts = time.perf_counter()
+        for case in G.CASES:
+            r = G.run(case, s, backend=backend)
+            check(all(math.isfinite(v) for v in r.stats.values() if isinstance(v, float)),
+                  f"{case} seed {s}: a statistic is not finite: {r.stats}")
+            runs[case].append(r)
+        seed_s.append(time.perf_counter() - ts)
+        spent = time.perf_counter() - t0
+        print(f"17 gates: seed {s} in {seed_s[-1]:.1f} s ({spent:.1f} s of the phase)",
+              flush=True)
+        if (len(seed_s) >= GATE_MIN_SEEDS
+                and spent + GATE_SEED_MARGIN * max(seed_s) > GATE_BUDGET_S):
+            break
+    S = len(seed_s)
+    rows, lost = {}, []
+    for case, rs in runs.items():
+        ref = table["cases"][case]
+        stat, op, _ = ref["checks"][0]
+        port_med, port_worst = _summary(lambda r: r.stats[stat], op, rs)
+        ref_med, ref_worst = _summary(lambda p: p["stats"][stat], op, ref["per_seed"])
+        passes = sum(r.passed for r in rs)
+        rows[case] = dict(passes=passes, seeds=S, stat=stat, median=port_med,
+                          worst=port_worst, values=[r.stats[stat] for r in rs],
+                          ref_passes=ref["passes"], ref_seeds=ref["seeds"],
+                          ref_median=ref_med, ref_worst=ref_worst)
+        if ref["passes"] == ref["seeds"] and 2 * (S - passes) > S:
+            lost.append(case)
+        print(f"17 {case}: port {passes}/{S} ({stat} median {port_med:.3f}, worst "
+              f"{port_worst:.3f}) | reference {ref['passes']}/{ref['seeds']} (median "
+              f"{ref_med:.3f}, worst {ref_worst:.3f})", flush=True)
+        for r in rs:
+            if not r.passed:
+                print(f"    failed: {r.message()}", flush=True)
+    a = sum(r["passes"] for r in rows.values())
+    n1 = S * len(rows)
+    b = sum(r["ref_passes"] for r in rows.values())
+    n2 = sum(r["ref_seeds"] for r in rows.values())
+    _, p = fisher_exact([[a, n1 - a], [b, n2 - b]], alternative="less")
+    n = counts(knn_cuda)
+    secs = time.perf_counter() - t0
+    print(f"17 gates: S_card {S} seeds a case; pooled pass rate port {a}/{n1} = "
+          f"{a / n1:.4f}, reference {b}/{n2} = {b / n2:.4f}; one-sided Fisher exact "
+          f"p = {p:.4g} (fails below {GATE_P}); cases the reference passes on every "
+          f"seed and the port fails on most: {lost or 'none'}; launches {n}; "
+          f"{secs:.1f} s of the {GATE_BUDGET_S:.0f} s budget", flush=True)
+    check_shapes(knn_cuda, "gates path")
+    print(json.dumps({"gates": dict(
+        seeds=S, pooled=dict(port=[a, n1], reference=[b, n2], fisher_p=p),
+        lost_cases=lost, cases=rows, pose_stream=stream, seconds=secs)}), flush=True)
+    check(n["K1"] > 0, "the gates never launched K1")
+    check(p >= GATE_P, f"the port's pooled pass rate {a}/{n1} is below the "
+          f"reference's {b}/{n2} (one-sided Fisher p = {p:.4g} < {GATE_P})")
+    check(not lost, f"cases the reference passes on every seed fail on most of "
+          f"the card's: {lost}")
+    check(secs <= GATE_BUDGET_S, f"phase 17 took {secs:.1f} s, over its "
+          f"{GATE_BUDGET_S:.0f} s budget")
+    return n
+
+
 def profile_phases(dev) -> None:
     """scripts/profile_phases_torch.py's main on the card."""
     _script("profile_phases_torch").main(device=dev)
@@ -2107,10 +2295,11 @@ def main(argv: list[str]) -> int:
         lib_launches = dict(run_phase("12 library kernels", library_kernels_phase,
                                       lb, sc, knn_cuda, dev, work),
                             K1=lb["launches"])
-    run_phase("13 bench", bench_phase, knn_cuda, dev, single)
-    mesh_launches = run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, single)
-    blind_launches = run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
-    run_phase("16 scripts", scripts_phase, knn_cuda)
+        run_phase("13 bench", bench_phase, knn_cuda, dev, single)
+        mesh_launches = run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, single)
+        blind_launches = run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
+        run_phase("16 scripts", scripts_phase, knn_cuda)
+        gate_launches = run_phase("17 accuracy gates", gates_phase, sq, knn_cuda, dev)
 
     names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)
@@ -2120,6 +2309,7 @@ def main(argv: list[str]) -> int:
         "library_sweep_launches": lib_launches[k],
         "mesh_launches": mesh_launches[k],
         "blind_path_launches": blind_launches[k],
+        "gate_launches": gate_launches[k],
         **stats[k], "library_ms": None,
     } for k in ("K1", "K2", "K3")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
