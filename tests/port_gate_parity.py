@@ -2,9 +2,12 @@
 streams: the measurements the port's gates are judged against. Not a test
 (pytest does not collect it); run on the CPU from the repo root:
 
-    JAX_PLATFORMS=cpu python tests/port_gate_parity.py            # all, ~50 min
+    JAX_PLATFORMS=cpu python tests/port_gate_parity.py            # all, ~60 min
     JAX_PLATFORMS=cpu python tests/port_gate_parity.py --only gates --jobs 3
     JAX_PLATFORMS=cpu python tests/port_gate_parity.py --only streams
+    JAX_PLATFORMS=cpu python tests/port_gate_parity.py --only draws       # ~1 min
+    JAX_PLATFORMS=cpu python tests/port_gate_parity.py --only behaviour --jobs 3  # ~7 min
+    JAX_PLATFORMS=cpu python tests/port_gate_parity.py --only stages --jobs 4  # ~12 min
 
 `gates`: every case of the six statistical test files
 (`tests/torch_gate_cases.CASES`) run with the JAX package over seeds
@@ -28,6 +31,33 @@ sequence seed (stored with the gates). (2) Two JAX pose streams (keys 0 and
 particles, 8 frames, the default config), tracked as `cli demo` tracks it:
 `tests/torch_ref_pose_stream.json`, which phase 17 compares the port's
 stream with.
+
+`draws`: every draw the gate cases take from `jax.random` (`JaxDraws`:
+trial orientations, recovery and path perturbations) at seeds 0 .. S - 1,
+logged call by call with its arguments and the arrays it returned by
+running each case's scenario builder (`torch_gate_cases.draw_calls`, no
+rendering, no estimator): `tests/torch_gate_draws.json`, which
+`torch_gate_cases.RecordedDraws` serves, so that the card runs the
+reference's own scenes without jax.
+
+`behaviour`: `tests/test_hand.py::
+test_config_select_recovers_evidence_under_wrong_nominal_q` over seeds
+0 .. K - 1 (K = 16), three ways: the reference's body with
+`jax.random.key(0)` replaced by `key(k)` (the test file itself unchanged);
+the port's runs on its own stream (`test_torch_hand_behaviour.
+config_select_run`); and the reference's body with the finger samples the
+port drew at each seed injected into its hand, the scenes the port's runs
+saw. Beside them each package's evidence rate over 300 seeds of its own
+first stage, and the port's seed 0 traced against the reference on the
+same samples (scene prep, then the search over 16 seeds):
+`tests/torch_behaviour_reference.json`.
+
+`stages`: the port on the CPU (no jax: port output only) through
+`torch_gate_cases.staged_occlusion` for the levels and seeds of
+`chip_smoke.py` phase 17 (d), every estimator draw from host generators,
+and the port's max tracked ADD-S at those levels over seeds 0 .. S - 1 on
+the reference's scenes and on the port's: `tests/torch_gate_stages_cpu.json`,
+the record the card's run of the same scenes is held against.
 """
 import argparse
 import json
@@ -59,6 +89,15 @@ from chip_smoke import DEMO  # noqa: E402  (phase 7's `cli demo` sizes)
 
 REFERENCE_JSON = os.path.join(HERE, "torch_gate_reference.json")
 STREAM_JSON = os.path.join(HERE, "torch_ref_pose_stream.json")
+BEHAVIOUR_JSON = os.path.join(HERE, "torch_behaviour_reference.json")
+# seeds of the config-selection test's records
+BEHAVIOUR_KEYS = 16
+# seeds of the config-selection test's evidence rates
+RECOVERY_DRAWS = 300
+# search seeds of the trace of the port's seed 0, and the distance from the
+# object's surface beyond which a scene point counts as off the object
+TRACE_SEARCH_SEEDS = 16
+OFF_OBJECT_M = 0.003
 # seeds per case of the gates
 SEEDS = 8
 # the tiny pose-stream measurement: sequence seeds, tracker keys, frames
@@ -521,12 +560,374 @@ def vga_streams() -> dict:
             "d_ref1_ref0_mm": d}
 
 
+def _plain_arrays(x):
+    """JSON's view of a draw: arrays as (nested) lists of their float32
+    values, which round-trip exactly."""
+    if isinstance(x, np.ndarray):
+        return x.astype(np.float32).tolist()
+    if isinstance(x, list):
+        return [_plain_arrays(v) for v in x]
+    return x
+
+
+def record_draws() -> dict:
+    """`draws`: every gate case's jax.random draws at seeds 0 .. SEEDS - 1,
+    one entry per distinct call (cases that share a key share its entry)."""
+    calls = {}
+    for case in G.CASES:
+        for s in range(SEEDS):
+            for c in G.draw_calls(case, s, JaxDraws()):
+                key = G._draw_key(c["method"], c["args"])
+                entry = {k: _plain_arrays(v) for k, v in c.items()}
+                assert calls.setdefault(key, entry) == entry, key
+    return {"seeds": list(range(SEEDS)), "calls": list(calls.values())}
+
+
+_CS: dict = {}
+
+
+def _config_select_setup() -> dict:
+    """The frame, models and base configuration of tests/test_hand.py::
+    test_config_select_recovers_evidence_under_wrong_nominal_q (the JAX
+    package), built once a process."""
+    if not _CS:
+        from icra20_hand_object_pose_tpu.datasets import (
+            default_object_pose, hand_base_for_grasp, render_frame_fast,
+        )
+        from icra20_hand_object_pose_tpu.models import ObjectModel, make_t42_hand
+        from icra20_hand_object_pose_tpu.utils import meshio
+        from icra20_hand_object_pose_tpu.utils.config import (
+            CameraIntrinsics, EstimatorConfig, HandConfig, PsoConfig,
+        )
+
+        cam = CameraIntrinsics(width=160, height=120, fx=140.0, fy=140.0, cx=80.0, cy=60.0)
+        hand = make_t42_hand(points_per_link=128)
+        mesh = meshio.make_test_object("box")
+        obj = ObjectModel(mesh, model_points=512, render_points=1024)
+        pose = default_object_pose()
+        hb = hand_base_for_grasp(pose)
+        q_true = np.asarray([0.45, 0.45], np.float32)
+        depth = jnp.asarray(render_frame_fast(mesh, pose, hand, hb, q_true, cam))
+        base = EstimatorConfig(
+            camera=cam, scene_points=1024, render_size=60,
+            pso=PsoConfig(particles=64, iters=4),
+            hand=HandConfig(config_samples=16, joint_sigma=0.2, config_select=0))
+        from icra20_hand_object_pose_tpu.utils import se3 as jse3
+
+        local, _ = mesh.sample_surface(8192, seed=123)
+        dense = np.asarray(jse3.transform_points(jnp.asarray(pose), jnp.asarray(local)))
+        _CS.update(hand=hand, dense=dense, obj=obj, pose=pose, hb=jnp.asarray(hb),
+                   q_wrong=jnp.asarray(q_true + 0.3), depth=depth, base=base, ests={})
+    return _CS
+
+
+def _reference_hand(normals):
+    """The reference test's hand; with `normals` ([K,J] unit normals) a copy
+    whose `sampled_clouds` serves those finger configurations in place of its
+    own draw, with the package's arithmetic."""
+    import copy
+
+    hand = _config_select_setup()["hand"]
+    if normals is None:
+        return hand
+    hand = copy.copy(hand)
+
+    def sampled_clouds(key, base_pose, q_nominal, sigma, n_samples):
+        noise = jnp.asarray(np.asarray(normals, np.float32)[:n_samples]) * sigma
+        noise = noise.at[0].set(0.0)
+        qs = jnp.clip(q_nominal[None] + noise, 0.0, jnp.pi)
+        return jax.vmap(lambda q: hand.cloud(base_pose, q))(qs)
+
+    hand.sampled_clouds = sampled_clouds
+    return hand
+
+
+def _reference_estimators(normals) -> dict:
+    """The test's two estimators ("union", config_select 0; "select", 3) on
+    `_reference_hand(normals)`: new ones (and so new traces) for injected
+    samples, else one pair a process."""
+    import dataclasses
+
+    from icra20_hand_object_pose_tpu.models import Estimator
+
+    c = _config_select_setup()
+    if normals is None and c["ests"]:
+        return c["ests"]
+    hand = _reference_hand(normals)
+    ests = {name: Estimator(c["obj"], hand, dataclasses.replace(
+        c["base"], hand=dataclasses.replace(c["base"].hand, config_select=sel)))
+        for name, sel in (("union", 0), ("select", 3))}
+    if normals is None:
+        c["ests"] = ests
+    return ests
+
+
+def reference_scene_prep(est, key: int):
+    """(scene points [n,3] where the weight is set, their count) of `est`'s
+    scene prep of the test's frame at jax.random.key(key)."""
+    c = _config_select_setup()
+    prep = c.setdefault("preps", {}).get(id(est))
+    if prep is None or prep[0] is not est:
+        prep = c["preps"][id(est)] = (est, jax.jit(est._scene_prep,
+                                                   static_argnames="init_scoring"))
+    k_hand, k_pre, _, _ = jax.random.split(jax.random.key(key), 4)
+    scene, w, *_ = prep[1](k_hand, k_pre, c["depth"], c["hb"], c["q_wrong"],
+                           init_scoring=False)
+    w = np.asarray(w)
+    return np.asarray(scene.points)[w > 0], float(w.sum())
+
+
+def config_select_run(key: int, normals=None) -> dict:
+    """The body of tests/test_hand.py::
+    test_config_select_recovers_evidence_under_wrong_nominal_q with
+    jax.random.key(key) for key(0) (the test file unchanged): per
+    configuration the estimate's scene points and ADD-S and the scene
+    prep's point count, and both assertions. With `normals` ([16,2], the
+    port's draw at seed `key`), the reference's hand draws those finger
+    samples in place of its own: the scene of the port's run at that seed,
+    the rest of the frame on the reference's key. `off_object`: the scene
+    prep's points off the object (`_off_object`)."""
+    from icra20_hand_object_pose_tpu.evaluation import add_s_error
+
+    c = _config_select_setup()
+    out = {"key" if normals is None else "seed": key}
+    if normals is not None:
+        out["normals"] = np.asarray(normals, np.float32).tolist()
+    for name, est in _reference_estimators(normals).items():
+        res = est.estimate(c["depth"], jnp.asarray(c["pose"]), c["hb"], c["q_wrong"],
+                           key=jax.random.key(key))
+        pts, n = reference_scene_prep(est, key)
+        out[name] = {"n_scene": float(res.n_scene), "scene_prep_points": n,
+                     "off_object": _off_object(pts, c["dense"]),
+                     "adds_m": float(add_s_error(np.asarray(res.pose), c["pose"],
+                                                 c["obj"].model_pts))}
+    u, sel = out["union"], out["select"]
+    out["evidence"] = sel["n_scene"] >= u["n_scene"] + 5
+    out["tracking"] = sel["adds_m"] < max(1.5 * u["adds_m"], 0.006)
+    out["passed"] = out["evidence"] and out["tracking"]
+    print(f"config_select, reference {'own key' if normals is None else 'on the port samples'}"
+          f" {key}: {out}", flush=True)
+    return out
+
+
+def _port_scene():
+    import torch
+
+    import test_torch_hand_behaviour as H
+
+    torch.set_num_threads(2)
+    return H, H.make_scene()
+
+
+def config_select_port_run(seed: int) -> dict:
+    """The port's run of the test's body at `seed` on its own stream
+    (test_torch_hand_behaviour.config_select_run, nothing injected):
+    finger-sample normals, per configuration scene points and ADD-S, both
+    assertions."""
+    H, sc = _port_scene()
+    out = H.config_select_run(sc, seed)
+    print(f"config_select, port on its own stream, seed {seed}: {out}", flush=True)
+    return out
+
+
+def config_select_on_port_samples(seed: int) -> dict:
+    """config_select_run at `seed` on the finger samples the port's hand
+    draws at that seed."""
+    H, sc = _port_scene()
+    return config_select_run(seed, H.first_stage(sc, seed)["normals"])
+
+
+def selection_recovery() -> dict:
+    """Per package, the share of seeds k < RECOVERY_DRAWS on which its own
+    first stage (nothing injected: the finger samples drawn at seed k, the
+    scene prep of the test's frame) keeps the 5 more scene points the
+    evidence assertion asks of the selection: the reference's at
+    jax.random.key(k), the port's at its generator seeded k."""
+    H, sc = _port_scene()
+    ref_ests = _reference_estimators(None)
+    out = {"draws": RECOVERY_DRAWS}
+    for name, gap in (
+            ("reference", lambda k: (reference_scene_prep(ref_ests["select"], k)[1]
+                                     - reference_scene_prep(ref_ests["union"], k)[1])),
+            ("port", lambda k: (lambda r: r["select"]["scene_prep_points"]
+                                - r["union"]["scene_prep_points"])(H.first_stage(sc, k)))):
+        ok = [bool(gap(k) >= 5) for k in range(RECOVERY_DRAWS)]
+        out[name] = {"share": sum(ok) / RECOVERY_DRAWS, "first_16": sum(ok[:16]),
+                     "per_seed": ok}
+        print(f"selection recovery, {name}: {sum(ok)}/{RECOVERY_DRAWS}, "
+              f"first 16: {sum(ok[:16])}", flush=True)
+    return out
+
+
+def _off_object(points: np.ndarray, dense: np.ndarray) -> int:
+    """How many scene points lie farther than OFF_OBJECT_M from the
+    object's surface at the true pose (`dense`, posed surface samples)."""
+    d2 = ((points[:, None, :] - dense[None]) ** 2).sum(-1).min(1)
+    return int((d2 > OFF_OBJECT_M ** 2).sum())
+
+
+def seed0_trace() -> dict:
+    """The port's failing seed 0, stage by stage against the reference on
+    the same inputs: the port's seed-0 finger samples S0 in both packages.
+    (1) The scene prep of each configuration: point counts, how many of
+    the port's points have no counterpart in the reference's cloud and the
+    largest nearest-neighbour distance between the two clouds (the
+    preprocessing subsample takes its own draw in each package), and how
+    many points lie off the object at the true pose. (2) The search:
+    S0 fixed, each configuration's ADD-S over search seeds 0 ..
+    TRACE_SEARCH_SEEDS - 1, the port on its generator seeded k, the
+    reference on jax.random.key(k), and how often the tracking assertion
+    holds."""
+    import torch
+
+    from icra20_hand_object_pose_tpu.evaluation import add_s_error as ref_add_s
+    from icra20_hand_object_pose_tpu_torch.evaluation import add_s_error
+    from icra20_hand_object_pose_tpu_torch.models import Estimator
+    from icra20_hand_object_pose_tpu_torch.utils import rng
+
+    H, sc = _port_scene()
+    c = _config_select_setup()
+    s0 = H.first_stage(sc, 0)["normals"]
+    dense = c["dense"]
+    ref_ests = _reference_estimators(s0)
+    hand = sc["hand"]
+    serve = H.fixed_samples(hand, s0)
+
+    def sampled_clouds(gen, base_pose, q_nominal, sigma, n_samples):
+        # the port's own draw is taken and set aside, so that search seed 0
+        # is the port's own run of seed 0
+        rng.normal(gen, (n_samples, hand.n_joints))
+        return serve(gen, base_pose, q_nominal, sigma, n_samples)
+
+    hand.sampled_clouds = sampled_clouds
+    try:
+        port_ests = {name: Estimator(sc["obj"], hand, H._cfg(sc["base"], sel))
+                     for name, sel in H.CONFIGS}
+        prep = {}
+        for name, est in port_ests.items():
+            scene, w, *_ = est._scene_prep(torch.Generator().manual_seed(0), *(
+                est._tensor(sc[k]) for k in ("depth", "hb", "q_wrong")))
+            p_pts = scene.points[w > 0].numpy()
+            r_pts, r_n = reference_scene_prep(ref_ests[name], 0)
+            nn = np.sqrt(((p_pts[:, None] - r_pts[None]) ** 2).sum(-1))
+            prep[name] = {
+                "port_points": int(len(p_pts)), "reference_points": int(r_n),
+                "points_unmatched": int((nn.min(1) > 1e-6).sum()),
+                "max_nn_distance_m": float(max(nn.min(1).max(), nn.min(0).max())),
+                "port_off_object": _off_object(p_pts, dense),
+                "reference_off_object": _off_object(r_pts, dense)}
+        search = {"port": [], "reference": []}
+        for k in range(TRACE_SEARCH_SEEDS):
+            e = {}
+            for name, est in port_ests.items():
+                res = est.estimate(sc["depth"], sc["pose"], sc["hb"], sc["q_wrong"], key=k)
+                e[name] = add_s_error(res.pose.numpy(), sc["pose"], sc["model_pts"])
+            search["port"].append(e)
+        for k in range(TRACE_SEARCH_SEEDS):
+            e = {}
+            for name, est in ref_ests.items():
+                res = est.estimate(c["depth"], jnp.asarray(c["pose"]), c["hb"], c["q_wrong"],
+                                   key=jax.random.key(k))
+                e[name] = float(ref_add_s(np.asarray(res.pose), c["pose"], c["obj"].model_pts))
+            search["reference"].append(e)
+    finally:
+        del hand.sampled_clouds
+    out = {"normals": s0, "scene_prep": prep, "off_object_m": OFF_OBJECT_M,
+           "search_seeds": TRACE_SEARCH_SEEDS, "adds_m": search}
+    for who, runs in search.items():
+        out[f"{who}_tracking_holds"] = sum(
+            r["select"] < max(1.5 * r["union"], 0.006) for r in runs)
+    print(f"seed-0 trace: {out}", flush=True)
+    return out
+
+
+def behaviour(jobs: int) -> dict:
+    """`behaviour`: over seeds 0 .. BEHAVIOUR_KEYS - 1, the reference's runs
+    of the config-selection test's body on its own keys, the port's on its
+    own stream, and the reference's on the port's finger samples (the
+    scenes the port's runs drew); the selection's evidence rate over
+    RECOVERY_DRAWS seeds in each package; the trace of the port's seed 0."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    seeds = range(BEHAVIOUR_KEYS)
+    with cf.ProcessPoolExecutor(jobs, mp_context=mp.get_context("spawn")) as ex:
+        own = ex.map(config_select_run, seeds)
+        port = ex.map(config_select_port_run, seeds)
+        on_port = ex.map(config_select_on_port_samples, seeds)
+        trace = ex.submit(seed0_trace)
+        recovery = ex.submit(selection_recovery)
+        own, port, on_port = list(own), list(port), list(on_port)
+        trace, recovery = trace.result(), recovery.result()
+    return {"test_hand.py::test_config_select_recovers_evidence_under_wrong_nominal_q": {
+        "keys": BEHAVIOUR_KEYS, "passes": sum(r["passed"] for r in own), "per_key": own,
+        "port_own_stream": {"seeds": BEHAVIOUR_KEYS, "passes": sum(r["passed"] for r in port),
+                            "per_seed": port},
+        "reference_on_port_samples": {"seeds": BEHAVIOUR_KEYS,
+                                      "passes": sum(r["passed"] for r in on_port),
+                                      "per_seed": on_port},
+        "selection_recovery": recovery, "seed0_trace": trace}}
+
+
+def occlusion_cpu_run(level: str, seed: int, draws: str) -> float:
+    """The port's max tracked ADD-S (mm) of occlusion case `level` at `seed`
+    on the CPU, on the reference's scenes (draws "reference":
+    RecordedDraws) or the port's (draws "port": PortDraws)."""
+    import torch
+
+    torch.set_num_threads(2)
+    d = G.RecordedDraws() if draws == "reference" else G.PortDraws()
+    r = G.run(f"test_occlusion_gate.py::test_tracking_under_occlusion[{level}]", seed,
+              device="cpu", draws=d)
+    print(f"occlusion {level} seed {seed}, {draws} draws: {r.stats['max_adds_mm']:.3f} mm",
+          flush=True)
+    return r.stats["max_adds_mm"]
+
+
+def stage_record(jobs: int) -> dict:
+    """`stages`: the port's staged runs on the CPU (torch_gate_cases.
+    staged_occlusion, the reference's recorded scenes, host draws), and the
+    port's max tracked ADD-S at the stage levels over seeds 0 .. SEEDS - 1
+    on the CPU, on the reference's scenes and on the port's (PortDraws,
+    phase 17's scenes before they were recorded)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    import torch
+
+    torch.set_num_threads(4)
+    runs = []
+    for level in G.STAGE_LEVELS:
+        for s in G.STAGE_SEEDS:
+            t0 = time.perf_counter()
+            runs.append(G.staged_occlusion(level, s, "cpu"))
+            print(f"stages {level} seed {s}: max ADD-S {runs[-1]['max_adds_mm']:.3f} mm "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    tasks = [(lv, s, d) for lv in G.STAGE_LEVELS for d in ("reference", "port")
+             for s in range(SEEDS)]
+    with cf.ProcessPoolExecutor(jobs, mp_context=mp.get_context("spawn")) as ex:
+        vals = list(ex.map(occlusion_cpu_run, *zip(*tasks)))
+    table = {}
+    for (lv, s, d), v in zip(tasks, vals):
+        table.setdefault(lv, {}).setdefault(f"{d}_draws", []).append(v)
+    return {"torch": torch.__version__, "runs": runs, "occlusion_cpu_max_adds_mm": table}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--jobs", type=int, default=3, help="worker processes of the gates")
-    ap.add_argument("--only", choices=["gates", "streams"], default=None)
+    ap.add_argument("--jobs", type=int, default=3,
+                    help="worker processes of the gates and of the behaviour runs")
+    ap.add_argument("--only", choices=["gates", "streams", "draws", "behaviour", "stages"],
+                    default=None)
     args = ap.parse_args()
     t0 = time.perf_counter()
+    for only, path, make in (("draws", G.DRAWS_JSON, record_draws),
+                             ("behaviour", BEHAVIOUR_JSON, lambda: behaviour(args.jobs)),
+                             ("stages", G.STAGES_JSON, lambda: stage_record(args.jobs))):
+        if args.only in (None, only):
+            t1 = time.perf_counter()
+            rec = make()
+            json.dump(dict(_header(t1), **rec), open(path, "w"))
     if args.only in (None, "gates"):
         table = gates(args.jobs)
         # the streams' entry, when this run does not remake it

@@ -7,7 +7,8 @@ scene points):
   estimate with object o's seed (every reduction of the search runs along
   an axis the object axis does not touch, and the kernels' plain versions
   compute each object apart, so no tolerance is needed on the CPU);
-  shared-scene object 0 bitwise the per-scene path on copies of the frame;
+  shared-scene object 0 bitwise the per-scene path on copies of the frame,
+  also under fused_gn, where every K3 call gets a scene per object;
 - against the JAX package's LibrarySweep on the same frames: result shapes,
   the `reinitialized` masks of forced states, `vel_ok` over three steps
   under a motion prior, the hypothesis slots at H = 2, and dense ADD-S. The
@@ -160,27 +161,74 @@ def test_sweep_object_matches_its_single_estimate(tiny, mode, variant):
             assert torch.equal(a[o], b), (SHAPES[o], name)
 
 
+def _shared_scene_object0(tiny, cfg, mode="init"):
+    """Object 0 of the shared-scene sweep of the first two models against
+    the per-scene path fed copies of the frame with the same seeds (5, 6):
+    every result field bitwise. Returns the shared-scene sweep."""
+    fr = tiny["frames"][0]
+    objs = tiny["tobjs"][:2]
+    per = LibrarySweep(objs, tiny["thand"], cfg)
+    sh = LibrarySweep(objs, tiny["thand"], cfg, shared_scene=True)
+    prev = np.stack([np.eye(4, dtype=np.float32) if mode == "init" else fr.pose_gt] * 2)
+    out_per = per._run([5, 6], np.stack([fr.depth] * 2), prev,
+                       np.stack([fr.hand_base] * 2), np.stack([fr.hand_q] * 2), mode)
+    out_sh = sh._run([5, 6], fr.depth, prev, fr.hand_base, fr.hand_q, mode)
+    for name, a, b in zip(out_sh._fields, out_sh, out_per):
+        assert torch.equal(a[0], b[0]), name
+    return sh
+
+
 def test_shared_scene_object0_bitwise_and_step(tiny):
     """Counterpart of test_sweep_shared_scene_object0_bitwise: the shared
     mode preps the frame once, on object 0's stream, so object 0's init
     result is bitwise the per-scene path's on copies of the frame; then the
     public step with unbatched inputs, and a mixed frame."""
-    cfg, fr = tiny["cfg"], tiny["frames"][0]
-    objs = tiny["tobjs"][:2]
-    per = LibrarySweep(objs, tiny["thand"], cfg)
-    sh = LibrarySweep(objs, tiny["thand"], cfg, shared_scene=True)
-    prev = np.stack([np.eye(4, dtype=np.float32)] * 2)
-    out_per = per._run([5, 6], np.stack([fr.depth] * 2), prev,
-                       np.stack([fr.hand_base] * 2), np.stack([fr.hand_q] * 2), "init")
-    out_sh = sh._run([5, 6], fr.depth, prev, fr.hand_base, fr.hand_q, "init")
-    assert torch.equal(out_sh.pose[0], out_per.pose[0])
-    assert torch.equal(out_sh.fitness[0], out_per.fitness[0])
+    fr = tiny["frames"][0]
+    sh = _shared_scene_object0(tiny, tiny["cfg"])
     st, res = sh.step(sh.init_state(), fr.depth, fr.hand_base, fr.hand_q)
     assert res.poses.shape == (2, 4, 4) and bool(res.reinitialized.all())
     fitness = st.fitness.clone()
     fitness[1] = 0.0
     _, res2 = sh.step(st._replace(fitness=fitness), fr.depth, fr.hand_base, fr.hand_q)
     assert res2.reinitialized.tolist() == [False, True]
+
+
+def _fused(cfg):
+    return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, fused_gn=True))
+
+
+@pytest.mark.parametrize("mode", ["init", "track"])
+def test_shared_scene_object0_bitwise_fused_gn(tiny, mode):
+    """The shared-scene mode under IcpConfig(fused_gn=True): object 0 bitwise
+    the per-scene path's on copies of the frame, through K3's plain version
+    (the in-scan refine and the explorer pulls)."""
+    _shared_scene_object0(tiny, _fused(tiny["cfg"]), mode)
+
+
+@pytest.mark.parametrize("mode", ["init", "track"])
+def test_shared_scene_gn_fn_gets_a_scene_per_object(tiny, mode):
+    """In the shared-scene mode every gn_fn call receives O scenes (ICP
+    anchors the one frame per object, and `_search` crops an ROI per
+    object), so K3 plans each object's sums from its own P particles, as
+    the single estimate does; never one scene for all O x P."""
+    fr, O = tiny["frames"][0], 2
+    sh = LibrarySweep(tiny["tobjs"][:O], tiny["thand"], _fused(tiny["cfg"]),
+                      shared_scene=True)
+    gn_fn, seen = sh._est.gn_fn, []
+
+    def spy(scene_c, scene_normals, scene_w, posed_c, posed_normals):
+        seen.append((tuple(scene_c.shape), tuple(scene_normals.shape),
+                     tuple(scene_w.shape), tuple(posed_c.shape)))
+        return gn_fn(scene_c, scene_normals, scene_w, posed_c, posed_normals)
+
+    for attr in ("maxd2", "min_cos", "tau2"):
+        setattr(spy, attr, getattr(gn_fn, attr))
+    sh._est.gn_fn = spy
+    prev = np.stack([np.eye(4, dtype=np.float32) if mode == "init" else fr.pose_gt] * O)
+    sh._run([5, 6], fr.depth, prev, fr.hand_base, fr.hand_q, mode)
+    assert seen
+    for scene, normals, w, posed in seen:
+        assert scene[0] == normals[0] == w[0] == posed[0] == O, seen
 
 
 def test_frame_seeds_and_stacked_draws():

@@ -6,7 +6,9 @@ test of the six statistical test files of the JAX package
 
 Not a test file (pytest does not collect it). It imports neither jax nor the
 JAX package: `tests/test_torch_gate_*.py` run the cases on the CPU,
-`chip_smoke.py` phase 17 runs every case on the card over seeds, and
+`chip_smoke.py` phase 17 runs every case on the card over seeds (and, for
+its check (d), one tracked case stage by stage under host draws that a
+card and a CPU share: `staged_occlusion`), and
 `tests/port_gate_parity.py` runs the same scenario code with the JAX package
 plugged in (its `JaxBackend` and `JaxDraws`) to measure the reference's own
 pass rates.
@@ -25,20 +27,31 @@ orientations, recovery and path perturbations) come from a `draws` object:
 `PortDraws` (the default) computes them with the port's `se3` on a host
 `torch.Generator` seeded from the same integers, the way
 `benchmarks._fold` folds (seed, trial, tag); a test passes the reference's
-own draws in instead. `seed = 0` with the reference's draws injected is the
-reference test's own scenario. The estimator's own stream is the port's:
+own draws in instead (`port_gate_parity.JaxDraws`, or `RecordedDraws`, the
+same arrays recorded for seeds 0-7, which need no jax: `chip_smoke.py`
+phase 17 runs on them). `seed = 0` with the reference's draws injected is
+the reference test's own scenario. The estimator's own stream is the port's:
 `Tracker(est, seed=base)`, and an init frame's key `_fold(base, trial, 0)`
 (a recovery frame's `_fold(base, trial, 3)`), as `benchmarks.bench_init`
 keys them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses as dc
+import json
+import os
 import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the reference's draws of every case at seeds 0-7 (RecordedDraws), and the
+# CPU's record of phase 17 (d)'s staged runs (staged_occlusion)
+DRAWS_JSON = os.path.join(HERE, "torch_gate_draws.json")
+STAGES_JSON = os.path.join(HERE, "torch_gate_stages_cpu.json")
 
 # the reference files' cameras: 320 x 240 (five files), 160 x 120
 # (test_score_concave.py)
@@ -91,6 +104,77 @@ class PortDraws:
             out.append(se3.perturb_pose(gen, torch.as_tensor(out[-1]), rot_sigma,
                                         trans_sigma).numpy().astype(np.float32))
         return out
+
+
+def _draw_key(method: str, args: list) -> str:
+    return json.dumps([method] + [a if a is None else float(a) if isinstance(a, float)
+                                  else int(a) for a in args])
+
+
+class RecordedDraws:
+    """The reference's own draws (`port_gate_parity.JaxDraws`: jax.random
+    keys split and folded as the reference tests do) for seeds `seeds` of
+    every case, read from `tests/torch_gate_draws.json`, which
+    `port_gate_parity.py --only draws` writes. Imports no jax, so the card
+    runs the reference's scenes. A call the recording does not hold, or a
+    pose argument other than the recorded one, raises LookupError: it never
+    falls back to other draws."""
+
+    def __init__(self, path: str = DRAWS_JSON):
+        with open(path) as f:
+            rec = json.load(f)
+        self.seeds = list(rec["seeds"])
+        self._calls = {_draw_key(c["method"], c["args"]): c for c in rec["calls"]}
+
+    def _serve(self, method: str, args: list, pose=None):
+        call = self._calls.get(_draw_key(method, args))
+        if call is None:
+            raise LookupError(f"no recorded draw {method}{tuple(args)}: the recording "
+                              f"holds the gate cases' draws at seeds {self.seeds}")
+        if pose is not None and not np.array_equal(np.asarray(pose, np.float32),
+                                                   np.asarray(call["pose"], np.float32)):
+            raise LookupError(f"draw {method}{tuple(args)} was recorded for another pose")
+        return call["out"]
+
+    def rotation(self, base: int, n: int, t: int, tag: int) -> np.ndarray:
+        return np.asarray(self._serve("rotation", [base, n, t, tag]), np.float32)
+
+    def perturb(self, base: int, n: int, t: int, tag: int, pose, rot_sigma: float,
+                trans_sigma: float) -> np.ndarray:
+        return np.asarray(self._serve("perturb", [base, n, t, tag, rot_sigma, trans_sigma],
+                                      pose), np.float32)
+
+    def path(self, base: int, pose, n_frames: int, rot_sigma: float,
+             trans_sigma: float) -> list[np.ndarray]:
+        return [np.asarray(p, np.float32) for p in self._serve(
+            "path", [base, n_frames, rot_sigma, trans_sigma], pose)]
+
+
+class Recorder:
+    """A draws object that logs every call of the one it wraps: method,
+    arguments (the pose apart), and what it returned."""
+
+    def __init__(self, draws):
+        self.draws, self.calls = draws, []
+
+    def _log(self, method, args, out, pose=None):
+        call = dict(method=method, args=list(args), out=out)
+        if pose is not None:
+            call["pose"] = np.asarray(pose, np.float32)
+        self.calls.append(call)
+        return out
+
+    def rotation(self, base, n, t, tag):
+        return self._log("rotation", (base, n, t, tag), self.draws.rotation(base, n, t, tag))
+
+    def perturb(self, base, n, t, tag, pose, rot_sigma, trans_sigma):
+        return self._log("perturb", (base, n, t, tag, rot_sigma, trans_sigma),
+                         self.draws.perturb(base, n, t, tag, pose, rot_sigma, trans_sigma),
+                         pose)
+
+    def path(self, base, pose, n_frames, rot_sigma, trans_sigma):
+        return self._log("path", (base, n_frames, rot_sigma, trans_sigma),
+                         self.draws.path(base, pose, n_frames, rot_sigma, trans_sigma), pose)
 
 
 # ---------------------------------------------------------------------------
@@ -824,3 +908,232 @@ def _plain(x):
     if isinstance(x, (list, tuple)):
         return [_plain(v) for v in x]
     return x
+
+
+# ---------------------------------------------------------------------------
+# The draws a case takes, without rendering
+# ---------------------------------------------------------------------------
+
+class ScenarioOnly(PortBackend):
+    """The port on the CPU with rendering left out: a case's scenario then
+    builds its poses and takes its draws in a fraction of a second (depth
+    images are zeros, sequences empty)."""
+
+    def __init__(self):
+        super().__init__("cpu")
+
+    def render_frame(self, mesh, pose, hand, hand_base, hand_q, cam, **kw) -> np.ndarray:
+        return np.zeros((cam.height, cam.width), np.float32)
+
+    def generate_sequence(self, mesh, hand, seq_cfg):
+        return []
+
+
+def draw_calls(case: str, seed: int, draws) -> list[dict]:
+    """Every call case `case` makes of `draws` at `seed`, in order (method,
+    arguments, pose argument, returned arrays), when every init misses."""
+    rec = Recorder(draws)
+    scenario(case, seed, backend=ScenarioOnly(), draws=rec)
+    return rec.calls
+
+
+# ---------------------------------------------------------------------------
+# Phase 17 (d): one run's stages under draws that a card and a CPU share
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def host_draws():
+    """Within the block, every draw of the port's sampling sites
+    (`utils/rng.py`: `normal`, `uniform`, `permutation`) comes from a host
+    torch.Generator, one per site generator, seeded from that generator's
+    `initial_seed()`, and is moved to the generator's device: a run on the
+    card and a run on the CPU draw the same numbers. The package's
+    functions are restored on exit."""
+    from icra20_hand_object_pose_tpu_torch.utils import rng
+
+    orig = rng.normal, rng.uniform, rng.permutation
+    hosts: dict = {}
+
+    def host(gen: torch.Generator) -> torch.Generator:
+        got = hosts.get(id(gen))
+        if got is None or got[0] is not gen:
+            got = hosts[id(gen)] = (gen, torch.Generator("cpu").manual_seed(
+                gen.initial_seed()))
+        return got[1]
+
+    def normal(gen, shape):
+        if isinstance(gen, torch.Generator):
+            return torch.randn(tuple(shape), generator=host(gen)).to(gen.device)
+        return orig[0](gen, shape)
+
+    def uniform(gen, shape):
+        if isinstance(gen, torch.Generator):
+            return torch.rand(tuple(shape), generator=host(gen)).to(gen.device)
+        return orig[1](gen, shape)
+
+    def permutation(gen, n):
+        if isinstance(gen, torch.Generator):
+            return torch.randperm(n, generator=host(gen)).to(gen.device)
+        return orig[2](gen, n)
+
+    rng.normal, rng.uniform, rng.permutation = normal, uniform, permutation
+    try:
+        yield
+    finally:
+        rng.normal, rng.uniform, rng.permutation = orig
+
+
+# the levels and seeds of phase 17 (d), and its hard check on the
+# deterministic stages (point counts relative, centroids in metres)
+STAGE_LEVELS = ("low_18pct", "mid_47pct")
+STAGE_SEEDS = (0, 1, 2)
+STAGE_COUNT_RTOL = 0.005
+STAGE_CENTROID_ATOL = 5e-6
+# a pose stage parts where an entry differs by more than this
+STAGE_POSE_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def _stage_probes(log: list):
+    """Within the block, each tracked frame of the port appends one dict to
+    `log`: the scene cloud's point count and centroid after `_scene_prep`,
+    the ROI's point count, the self-occlusion mask's count, the best pose
+    after each PSO iteration, the polished best candidate, the pose after
+    the finisher and the frame's final pose (wrappers around the package's
+    functions, removed on exit)."""
+    from icra20_hand_object_pose_tpu_torch.models import estimator as est_mod
+    from icra20_hand_object_pose_tpu_torch.ops import icp as icp_mod
+    from icra20_hand_object_pose_tpu_torch.ops import pso as pso_mod
+
+    E = est_mod.Estimator
+    orig = (E._scene_prep, E._self_occlusion_mask, E._search, pso_mod.pso,
+            icp_mod.icp_batched)
+    cur: dict = {}
+
+    def flat(t) -> list:
+        return [float(x) for x in t.reshape(-1).cpu()]
+
+    def scene_prep(self, *a, **k):
+        out = orig[0](self, *a, **k)
+        scene, weights = out[0], out[1]
+        w = weights.to(torch.float64)
+        cur.clear()
+        cur.update(scene_points=float(w.sum()), scene_centroid=flat(
+            (scene.points.to(torch.float64) * w[..., None]).sum(-2) / w.sum()),
+                   refines=[])
+        return out
+
+    def self_occlusion(self, *a, **k):
+        mask = orig[1](self, *a, **k)
+        cur["self_occlusion"] = float(mask.sum())
+        return mask
+
+    def search(self, *a, **k):
+        out = orig[2](self, *a, **k)
+        cur.update(roi_points=float(out.n_scene[0]), pose=flat(out.pose[0]))
+        refines = cur.pop("refines")
+        n = k["n_particles"]
+        scan = [r for r in refines if r[0] == n]
+        # each scan refine's particle 0 is the best so far; the polish (the
+        # last refine) starts from the scan's final best
+        cur["scan_best"] = [r[1] for r in scan[1:]] + [refines[-1][1]]
+        cur["polish"] = refines[-1][2]
+        log.append(dict(cur))
+        return out
+
+    def pso(*a, **k):
+        res = orig[3](*a, **k)
+        cur["finisher"] = flat(res.best_pose[0])
+        return res
+
+    def icp_batched(poses0, *a, **k):
+        out = orig[4](poses0, *a, **k)
+        cur["refines"].append((poses0.shape[1], flat(poses0[0, 0]), flat(out[0][0, 0])))
+        return out
+
+    E._scene_prep, E._self_occlusion_mask, E._search = scene_prep, self_occlusion, search
+    pso_mod.pso, icp_mod.icp_batched = pso, icp_batched
+    try:
+        yield
+    finally:
+        (E._scene_prep, E._self_occlusion_mask, E._search, pso_mod.pso,
+         icp_mod.icp_batched) = orig
+
+
+def staged_occlusion(level: str, seed: int, device, *, draws=None,
+                     priors: dict | None = None) -> dict:
+    """The tracked occlusion case `level` at `seed` on `device` with every
+    estimator draw from host generators (`host_draws`) and each frame's
+    stages recorded (`_stage_probes`). The frames are rendered on the CPU
+    from the reference's recorded draws, so a card run and a CPU run see
+    the same depth images. `priors` maps a frame index to a pose [4,4]
+    that the tracker carries out of that frame in place of its own (the
+    frame's record keeps its own): a replay of the later frames from
+    another run's pose."""
+    draws = draws or RecordedDraws()
+    frames = occlusion_scenario(PortBackend("cpu"), draws, level, seed)
+    B = PortBackend(device)
+    mesh = B.meshio.make_test_object("asym")
+    obj = B.object(mesh, "asym", model_points=1024, render_points=1024)
+    est = B.estimator(obj, B.hand(), _gate_cfg(B.config))
+    dense, _ = mesh.sample_surface(8192, seed=123)
+    tracker = B.tracker(est, seed)
+    B.start_from(tracker, frames[0].pose_gt)
+    log: list = []
+    with host_draws(), _stage_probes(log):
+        for fr in frames:
+            pose, _, _ = B.step(tracker, fr.depth, fr.hand_base, fr.hand_q)
+            log[-1]["adds_mm"] = 1000.0 * float(B.evaluation.add_s_error(
+                pose, fr.pose_gt, dense))
+            if priors and len(log) - 1 in priors:
+                B.start_from(tracker, np.asarray(priors[len(log) - 1], np.float32))
+    return dict(level=level, seed=seed, frames=log,
+                max_adds_mm=max(f["adds_mm"] for f in log[1:]))
+
+
+STAGE_ORDER = ("scene_points", "scene_centroid", "roi_points", "self_occlusion",
+               "scan_best", "polish", "finisher", "pose")
+DETERMINISTIC = {"scene_points", "scene_centroid", "roi_points", "self_occlusion"}
+
+
+def _parts(name: str, a, b) -> tuple[bool, float]:
+    """(whether two values of stage `name` part, their difference)."""
+    if name == "scene_centroid" or name in ("polish", "finisher", "pose"):
+        d = float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+        return d > (STAGE_CENTROID_ATOL if name == "scene_centroid" else STAGE_POSE_ATOL), d
+    d = abs(a - b) / max(abs(b), 1.0)
+    return d > STAGE_COUNT_RTOL, d
+
+
+def compare_stages(run: dict, ref: dict, *, frame0: int = 0) -> dict:
+    """`run` against `ref` (two `staged_occlusion` records of one scene, or
+    their frames from `frame0` on, both carried into `frame0` from the same
+    pose): the first stage, in frame and stage order, at which they part
+    (None when they never do), the first within each frame, each
+    deterministic stage's largest difference and those beyond their
+    tolerances (the counts of the ROI and the self-occlusion mask only on
+    frames whose prior, the last frame's final pose, agreed)."""
+    first, bad, worst, per_frame = None, [], {}, []
+    prior_same = True
+    for f, (a, b) in enumerate(zip(run["frames"], ref["frames"]), frame0):
+        here = None
+        for name in STAGE_ORDER:
+            if name == "scan_best":
+                for i, (pa, pb) in enumerate(zip(a[name], b[name])):
+                    part, d = _parts("pose", pa, pb)
+                    if part and here is None:
+                        here = dict(frame=f, stage=f"scan_best[{i}]", diff=d)
+                continue
+            part, d = _parts(name, a[name], b[name])
+            if part and here is None:
+                here = dict(frame=f, stage=name, diff=d)
+            if name in DETERMINISTIC and (name in ("scene_points", "scene_centroid")
+                                          or prior_same):
+                worst[name] = max(worst.get(name, 0.0), d)
+                if part:
+                    bad.append(dict(frame=f, stage=name, diff=d))
+        per_frame.append(here)
+        first = first or here
+        prior_same = not _parts("pose", a["pose"], b["pose"])[0]
+    return dict(first_parting=first, frame_partings=per_frame,
+                deterministic_max_diff=worst, deterministic_failures=bad)
