@@ -10,6 +10,7 @@
                                            # 14, 15
     python3 chip_smoke.py --bench-only     # build + kernel phases + phase 13, then
                                            # scripts/profile_phases_torch.py
+    python3 chip_smoke.py --programs-only  # build + phase 18
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -226,7 +227,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches by kernel and shape printed, the seconds of (a)-(b), (c) and
      (d) printed against their budgets; {"gates": ...} and
      {"gates_paired": ..., "gates_stages": ...} JSON lines hold the tables;
-  18. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  18. compiled programs (utils/program.py; every phase above already runs
+     through them, since they are the default path): (a) each program
+     against its traced function run eagerly at seeds 0-2, every result
+     field bitwise: BASELINE config 3's tracked frame, the default init
+     frame, both under fused_gn, the tracked frame through nn_fn, both in
+     pixel mode, and LibrarySweep 8 x 512 per scene and shared, track and
+     init; each later call must replay (the program's replay counter rises
+     by one, the traced method is not called); one more replay of each
+     program under torch.profiler (after (d)'s timings: a profiler session
+     slows every later replay's issue), whose K1, K2 and K3 kernels counted by
+     name must equal the launches the program recorded at its capture; K1,
+     K2 and K3 each launched in a replay (replays alone counted, warm-ups
+     and eager frames left out); (b) a Tracker's frame k result unchanged
+     by frame k+1's replay; (c) K3's shared arrival counters grown to 8192
+     and the freed memory refilled after a K3 program was captured, then a
+     fused_gn sweep init program (8 x 1024) captured, and the K3 program
+     replayed bitwise against eager; (d) each program's capture seconds,
+     each owner's pool bytes (its programs share one pool), Tracker.step
+     ms/frame, the default init frame and the 8 x 512
+     sweep step through the programs and eagerly in alternating turns, one
+     replay's device ms (events around it, behind a pad that keeps the
+     host's issue out of them) and the host's us to issue a replay and an
+     estimate call, each before and after a profiled replayed frame and an
+     eager one (their idle share and ATen calls), each with the card's
+     name and power limit; a {"programs": ...} JSON line;
+  19. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Every phase prints its seconds.
 
@@ -238,8 +264,12 @@ K3: their step of phase 12), its `mesh_launches` each kernel's launches
 in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
 it; K2 and K3 read 0 unless a mesh path launched them), its
 `blind_path_launches` each kernel's launches over phase 15, its
-`gate_launches` those over phase 17 ((a)-(d)); `shapes` holds every timed shape's
-numbers.
+`gate_launches` those over phase 17 ((a)-(d)), its `program_launches`
+those of phase 18 (a)'s replays alone (each program's replays times the
+launches recorded at its capture, which a profiled replay confirms);
+`shapes` holds every timed shape's numbers. A compiled program's capture
+launches nothing: its launches count once per replay (and its warm-up's
+as they run).
 Phases 7-9 and 11 run K1 too and print their own counts. Each path phase
 also reads the (P, blocks, Ns, Nm) of every launch it made and fails if
 phase 3 did not hold that kernel against its plain version at that shape.
@@ -248,6 +278,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -326,6 +357,14 @@ GATE_P = 0.01
 PAIRED_LEVELS = ("low_18pct", "mid_47pct", "heavy_63pct")
 PAIRED_P = 0.01
 PAIRED_BUDGET_S = 120.0
+# phase 18: the seeds each program is held against eager at, the turns of
+# each alternating timing and the tracked frames of a Tracker.step turn
+PROGRAM_SEEDS = (0, 1, 2)
+PROGRAM_TURNS = 4
+PROGRAM_FRAMES = 4
+# the clock cycles of the pad queued before a timed replay (~0.1 s on an
+# H100: longer than the host takes to issue the replay)
+REPLAY_PAD_CYCLES = 200_000_000
 # phase 17 (d): the budget of the staged runs against the CPU's record
 STAGES_BUDGET_S = 120.0
 # tie cases, checked only (P, Pq, Ns, Nm): the polish shape and the ragged
@@ -360,7 +399,7 @@ DEMO = dict(frames=8, width=640, height=480, particles=512)
 # the bench phase's JSON lines: the keys each must hold
 BENCH_KEYS = {
     "main": {"metric", "value", "unit", "vs_baseline", "ms_per_frame",
-             "e2e_tracker_ms_per_frame", "full_refine_equiv_per_sec",
+             "eager_ms_per_frame", "e2e_tracker_ms_per_frame", "full_refine_equiv_per_sec",
              "device_ms_per_frame", "idle_share", "aten_calls_per_frame",
              "device", "power_limit_w"},
     "bench_sweep": {"metric", "value", "unit", "vs_baseline", "hyp_per_sec_chip",
@@ -1844,8 +1883,8 @@ def bench_phase(knn_cuda, dev, single: dict | None) -> None:
     beside = (f"; phase 4's Tracker.step {single['frame_ms']:.2f} ms/frame, "
               f"profiled {single['device_ms']:.3f} ms device, "
               f"{single['aten_calls']} ATen calls" if single else "")
-    print(f"bench: frame program {head['ms_per_frame']} ms/frame, "
-          f"Tracker.step {head['e2e_tracker_ms_per_frame']} ms/frame, "
+    print(f"bench: frame program {head['ms_per_frame']} ms/frame (eager "
+          f"{head['eager_ms_per_frame']} ms/frame), Tracker.step {head['e2e_tracker_ms_per_frame']} ms/frame, "
           f"{head['value']} hypotheses/s, profiled frame "
           f"{head['device_ms_per_frame']} ms device, idle {head['idle_share']}, "
           f"{head['aten_calls_per_frame']} ATen calls{beside}; library 8 x 128: "
@@ -2441,6 +2480,416 @@ def _stages_outlier(G, dev, recorded, card: dict, cpu: dict) -> dict:
                 replay_deterministic_failures=later["deterministic_failures"])
 
 
+def parting(a, b) -> dict:
+    """The fields of two results (FrameResult) that are not bitwise equal,
+    each with its largest absolute and relative difference."""
+    import torch
+
+    out = {}
+    for name, x, y in zip(a._fields, a, b):
+        if x is None and y is None:
+            continue
+        if x.shape != y.shape or x.dtype != y.dtype:
+            out[name] = (float("inf"), float("inf"))
+            continue
+        bits = torch.int32 if x.element_size() == 4 else torch.uint8
+        if torch.equal(x.contiguous().view(bits), y.contiguous().view(bits)):
+            continue
+        d = (x.double() - y.double()).abs().nan_to_num(float("inf"))
+        rel = d / y.double().abs().clamp(min=1e-30)
+        out[name] = (float(d.max()), float(rel.max()))
+    return out
+
+
+class Spy:
+    """Counts the calls of a traced method set on an instance in its place
+    (est._frame_step, sweep._sweep_step): a program calls it at its warm-up
+    and its capture, a replay never."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+        self.orig = getattr(owner, name)
+        self.calls = 0
+        setattr(owner, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.orig(*args, **kwargs)
+
+    def remove(self) -> None:
+        delattr(self.owner, self.name)
+
+
+def program_case(label: str, owner, traced: str, run_program, run_eager,
+                 seeds=PROGRAM_SEEDS) -> dict:
+    """Phase 18 (a), one program: `run_program(seed)` (through the owner's
+    programs) against `run_eager(seed)` (the traced function run eagerly)
+    at each seed, every field bitwise. The call that makes the program
+    captures it (a warm-up and a capture: two calls of the traced method);
+    every other call must replay: the program's replay counter rises by one
+    a call and the traced method is not called. Returns the fields that
+    part, per seed."""
+    spy = Spy(owner, traced)
+    progs = owner._programs.programs
+    try:
+        partings = {}
+        for seed in seeds:
+            before = {k: p.replays for k, p in progs.items()}
+            calls = spy.calls
+            out = run_program(seed)
+            ran = [k for k, p in progs.items() if p.replays != before.get(k, 0)]
+            check(len(ran) == 1 and progs[ran[0]].replays == before.get(ran[0], 0) + 1,
+                  f"18 {label} seed {seed}: not one replay of one program ({ran})")
+            check(spy.calls - calls == (0 if ran[0] in before else 2),
+                  f"18 {label} seed {seed}: the traced {traced} ran "
+                  f"{spy.calls - calls} times (a replay runs it never)")
+            eager = run_eager(seed)
+            partings[seed] = parting(out, eager)
+    finally:
+        spy.remove()
+    prog = progs[ran[0]]
+    print(f"18 {label}: {len(seeds)} seeds, replays {prog.replays}, fields parting "
+          f"from eager {partings if any(partings.values()) else 'none (bitwise)'}; "
+          f"launches a replay {_launch_summary(prog.launches)}", flush=True)
+    return dict(label=label, program=prog, partings=partings, run=run_program)
+
+
+def _launch_summary(launches: dict) -> dict:
+    return {name: n for name, (n, _) in launches.items() if n}
+
+
+def estimate_case(label, est, args, mode) -> dict:
+    """`program_case` of `est.estimate` (an int seed: the program) against
+    `_frame_step` on `frame_args` of the same seed."""
+    def eager(seed):
+        dyn, static = est.frame_args(*args, key=seed, mode=mode)
+        return type(est)._frame_step(est, *dyn, **static)
+
+    return program_case(label, est, "_frame_step",
+                        lambda seed: est.estimate(*args, key=seed, mode=mode), eager)
+
+
+def sweep_case(label, sweep, lib, mode, seeds=PROGRAM_SEEDS) -> dict:
+    """`program_case` of `LibrarySweep._run` (int seeds: the program) against
+    `_sweep_step` run eagerly on the same seeds' generators."""
+    import numpy as np
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.models.estimator import _generator
+    from icra20_hand_object_pose_tpu_torch.parallel.sharding import frame_seeds
+    from icra20_hand_object_pose_tpu_torch.utils import rng
+
+    n = lib.n
+    gt = np.eye(4, dtype=np.float32) if mode == "init" else lib.sc.pose_gt
+    if sweep.shared_scene:
+        args = (lib.depths[0], np.stack([gt] * n), lib.hand_bases[0], lib.hand_qs[0])
+    else:
+        args = (lib.depths, np.stack([gt] * n), lib.hand_bases, lib.hand_qs)
+
+    def keys(seed):
+        return frame_seeds(seed, n)[1]
+
+    def eager(seed):
+        gens = rng.Stack([_generator(k, sweep.device) for k in keys(seed)])
+        inputs = [torch.as_tensor(a, dtype=torch.float32, device=sweep.device)
+                  for a in args]
+        return type(sweep)._sweep_step(sweep, gens, *inputs, **sweep._statics(mode))
+
+    return program_case(label, sweep, "_sweep_step",
+                        lambda seed: sweep._run(keys(seed), *args, mode), eager, seeds)
+
+
+def alternating(label: str, smi: str, sides: dict, turns: int = PROGRAM_TURNS) -> dict:
+    """ms per call of each side's function, in turns that alternate which
+    side goes first (wall time drifts within a call); each turn's call
+    ends in a wait for the card. Prints the median of each side's turns."""
+    import statistics
+
+    import torch
+
+    names = list(sides)
+    per = {k: [] for k in names}
+    for t in range(turns):
+        for k in (names if t % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sides[k]()
+            torch.cuda.synchronize()
+            per[k].append(1000.0 * (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in per.items()}
+    print(f"18 {label}: " + ", ".join(
+        f"{k} {med[k]:.2f} ms (turns {[round(x, 2) for x in per[k]]})" for k in names)
+        + f"; {smi}", flush=True)
+    return med
+
+
+def programs_phase(sc: Scene, knn_cuda, dev, smi: str) -> dict:
+    """Phase 18 (module docstring): the compiled programs against the
+    traced functions run eagerly, their aliasing, K3's counters, and their
+    costs and times."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.models import Estimator, Tracker
+    from icra20_hand_object_pose_tpu_torch.models.estimator import _generator
+    from icra20_hand_object_pose_tpu_torch.utils.profiling import profile_counts
+
+    cfg = sc.cfg
+    fused = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, fused_gn=True))
+    pixel = dataclasses.replace(cfg, score=dataclasses.replace(cfg.score, mode="pixel"))
+    est = Estimator(sc.obj, sc.hand, cfg)
+    est_f = Estimator(sc.obj, sc.hand, fused)
+    est_k2 = Estimator(sc.obj, sc.hand, cfg, nn_fn=knn_cuda.make_nn_fn())
+    est_px = Estimator(sc.obj, sc.hand, pixel)
+    track = (sc.depth, sc.pose_gt, sc.hand_base, sc.hand_q)
+    init = (sc.depth, np.eye(4, dtype=np.float32), sc.hand_base, sc.hand_q)
+    reset_counts(knn_cuda)
+    cases = [estimate_case("config 3 track", est, track, "track"),
+             estimate_case("default init", est, init, "init"),
+             estimate_case("fused_gn track", est_f, track, "track"),
+             estimate_case("fused_gn init", est_f, init, "init"),
+             estimate_case("nn_fn track", est_k2, track, "track"),
+             estimate_case("pixel track", est_px, track, "track"),
+             estimate_case("pixel init", est_px, init, "init")]
+    lib = Library(sc, dev, LIB_MESHES)
+    sweeps = {"per-scene": lib.sweep(), "shared-scene": lib.sweep(shared_scene=True)}
+    for name, sw in sweeps.items():
+        for mode in ("track", "init"):
+            cases.append(sweep_case(f"LibrarySweep {LIB} x 512 {name} {mode}", sw,
+                                    lib, mode))
+    owners = {"config 3": est, "fused_gn": est_f, "nn_fn": est_k2, "pixel": est_px,
+              **{f"LibrarySweep {name}": sw for name, sw in sweeps.items()}}
+    n = replay_launches(owners.values())
+    check(all(v > 0 for v in n.values()), f"18: a kernel never ran in a replay: {n}")
+    print(f"18 (a): launches in the replays of phase 18 (a) {n}", flush=True)
+    parted = {c["label"]: c["partings"] for c in cases if any(c["partings"].values())}
+    # (b) frame k's result after frame k+1's replay
+    tracker = Tracker(est, seed=0)
+    tracker.state = tracker.state._replace(pose=sc.pose_gt, initialized=True, fitness=1.0)
+    res_k = tracker.step(sc.depth, sc.hand_base, sc.hand_q)
+    kept = [t.clone() for t in (res_k.pose, res_k.fitness, res_k.coverage)]
+    res_k1 = tracker.step(sc.depth, sc.hand_base, sc.hand_q)
+    check(all(torch.equal(a, b) for a, b in
+              zip((res_k.pose, res_k.fitness, res_k.coverage), kept)),
+          "18 (b): frame k's result changed with frame k+1's replay")
+    check(not torch.equal(res_k.pose, res_k1.pose),
+          "18 (b): frames k and k+1 returned the same pose")
+    print("18 (b): frame k's pose, fitness and coverage unchanged by frame k+1's "
+          "replay", flush=True)
+    # (c) K3's shared counters grow (and the old ones are freed) after a K3
+    # program was captured; the program replays bitwise the eager frame
+    P = 8192
+    g = torch.Generator(device=dev).manual_seed(0)
+    scene, snrm = (torch.rand((1, 512, 3), generator=g, device=dev) for _ in range(2))
+    ref, rnrm = (torch.rand((P, 256, 3), generator=g, device=dev) for _ in range(2))
+    knn_cuda.nn_gn_batched(scene, snrm, torch.ones((1, 512), device=dev), ref, rnrm,
+                           maxd2=0.01, min_cos=0.5, plan=knn_cuda.Plan(1, 1, 2))
+    grown = knn_cuda._ARRIVED[ref.device].numel()
+    check(grown >= P, f"18 (c): K3's counters hold {grown}, not grown to {P}")
+    junk = [torch.full((1 << 16,), -1, dtype=torch.int32, device=dev) for _ in range(64)]
+    sw_f = lib.sweep(fused)
+    sweep_case(f"(c) fused_gn LibrarySweep {LIB} x 1024 init", sw_f, lib, "init",
+               seeds=(0,))
+    c = estimate_case("(c) fused_gn track after the counters grew", est_f, track, "track")
+    del junk
+    check(not any(c["partings"].values()), f"18 (c): the K3 program parts from "
+          f"eager after the counters grew: {c['partings']}")
+    check(not parted, f"18 (a): programs part from eager: {parted}")
+    # (d) costs and times
+    for c in cases:
+        print(f"18 (d) {c['label']}: capture {c['program'].capture_s:.2f} s "
+              f"(warm-up + capture); {smi}", flush=True)
+    pools = {name: dict(programs=len(o._programs),
+                        pool_mib=o._programs.pool_bytes() / 2 ** 20)
+             for name, o in owners.items()}
+    for name, p in pools.items():
+        print(f"18 (d) {name}: {p['programs']} programs share a pool of "
+              f"{p['pool_mib']:.1f} MiB; {smi}", flush=True)
+    eager_est = Estimator(sc.obj, sc.hand, cfg)
+    eager_est.estimate = (lambda *a, key, mode: Estimator.estimate(
+        eager_est, *a, key=_generator(key, dev), mode=mode))
+    trk_p, trk_e = Tracker(est, seed=0), Tracker(eager_est, seed=0)
+    for t in (trk_p, trk_e):
+        t.state = t.state._replace(pose=sc.pose_gt, initialized=True, fitness=1.0)
+
+    def frames(t, n=PROGRAM_FRAMES):
+        def run():
+            for _ in range(n):
+                t.step(sc.depth, sc.hand_base, sc.hand_q)
+            t.state.pose.cpu()
+        return run
+
+    trk = alternating("Tracker.step, ms per turn of "
+                      f"{PROGRAM_FRAMES} frames", smi,
+                      {"programs": frames(trk_p), "eager": frames(trk_e)})
+    ini = alternating("default init frame", smi, {
+        "programs": lambda: est.estimate(*init, key=3, mode="init").pose.cpu(),
+        "eager": lambda: estimate_eager(est, init, "init")}, turns=2)
+    sw = sweeps["per-scene"]
+    sw_e = lib.sweep()
+    sw_e._run = (lambda keys, *a: type(sw_e)._run(
+        sw_e, [_generator(k, dev) for k in keys], *a))
+    states = {"programs": lib.seeded(sw), "eager": lib.seeded(sw_e)}
+
+    def sweep_steps(s, name, n=2):
+        def run():
+            for _ in range(n):
+                states[name], res = s.step(states[name], lib.depths, lib.hand_bases,
+                                           lib.hand_qs)
+            res.poses.cpu()
+        return run
+
+    swp = alternating(f"LibrarySweep.step {LIB} x 512, ms per turn of 2 steps", smi,
+                      {"programs": sweep_steps(sw, "programs"),
+                       "eager": sweep_steps(sw_e, "eager")})
+    prog = cases[0]["program"]
+    on_card = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in track]
+    before = replay_times(prog.graph, lambda: est.estimate(*on_card, key=5, mode="track"))
+    pr = profile_counts(lambda: est.estimate(*track, key=6, mode="track").pose.cpu(),
+                        device=dev)
+    pe = profile_counts(lambda: estimate_eager(est, track, "track"), device=dev)
+    after = replay_times(prog.graph, lambda: est.estimate(*on_card, key=5, mode="track"))
+    idle = 1.0 - pr["device_ms"] / pr["wall_ms"]
+    for when, t in (("before", before), ("after", after)):
+        print(f"18 (d) config 3 track program, {when} the profiled frames: one replay "
+              f"{t['device_ms']:.3f} ms on the card (events behind a pad; "
+              f"{t['events_ms']:.3f} ms without it); host {t['replay_us']:.1f} us to "
+              f"issue a replay, {t['estimate_us']:.1f} us an estimate call (inputs on "
+              f"the card; the card idle before each); {smi}", flush=True)
+    print(f"18 (d) config 3 track program: profiled replayed frame {pr['wall_ms']:.2f} "
+          f"ms wall, {pr['device_ms']:.3f} ms device, idle {100.0 * idle:.1f}%, "
+          f"{pr['aten_calls']} ATen calls; profiled eager frame {pe['wall_ms']:.2f} ms "
+          f"wall, {pe['device_ms']:.3f} ms device, idle "
+          f"{100.0 * (1.0 - pe['device_ms'] / pe['wall_ms']):.1f}%, {pe['aten_calls']} "
+          f"ATen calls; {smi}", flush=True)
+    # (a) each program's recorded launches against a profiled replay's
+    # kernels: last, since a profiler session slows every later replay's
+    # issue on the host (PERF.md §6)
+    for c in cases:
+        traced_replay(c, dev)
+    out = dict(
+        programs={c["label"]: dict(capture_s=c["program"].capture_s,
+                                   launches=_launch_summary(c["program"].launches))
+                  for c in cases},
+        pools=pools,
+        tracker_ms_per_frame={k: v / PROGRAM_FRAMES for k, v in trk.items()},
+        init_ms=ini, sweep_ms_per_step={k: v / 2 for k, v in swp.items()},
+        replay_before_profile=before, replay_after_profile=after,
+        replayed_frame=dict(wall_ms=pr["wall_ms"], device_ms=pr["device_ms"],
+                            idle_share=idle, aten_calls=pr["aten_calls"]),
+        eager_frame=dict(wall_ms=pe["wall_ms"], device_ms=pe["device_ms"],
+                         aten_calls=pe["aten_calls"]),
+        card=smi)
+    print(json.dumps({"programs": out}), flush=True)
+    return n
+
+
+# a kernel's name in a profiler trace (demangled or not) -> its wrapper
+KERNEL_NAMES = (
+    (re.compile(r"\bnn_kernel<[^>]*\btrue>|_Z\d+nn_kernelI(?:Li\d+E)+Lb1E"),
+     "nn_gather_batched"),
+    (re.compile(r"\bnn_kernel<[^>]*\bfalse>|_Z\d+nn_kernelI(?:Li\d+E)+Lb0E"),
+     "nn_batched"),
+    (re.compile(r"\bnn_gn_kernel<|_Z\d+nn_gn_kernelI"), "nn_gn_batched"),
+)
+
+
+def traced_kernels(call) -> dict:
+    """K1, K2 and K3's kernels that one `call` ran on the card, by wrapper
+    name, counted by kernel name in a torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    n = {name: 0 for _, name in KERNEL_NAMES}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for pattern, name in KERNEL_NAMES:
+                if pattern.search(e.key):
+                    n[name] += e.count
+    return n
+
+
+def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
+    """Phase 18 (a): one more call of the case's program, a replay, under
+    torch.profiler; K1-K3 counted by name in its trace must equal the
+    launches the program recorded at its capture. The profiler now and then
+    loses events, so a trace that counts fewer is taken again, up to
+    `tries` times; one that counts more fails at once."""
+    prog = case["program"]
+    want = {name: n for name, (n, _) in prog.launches.items()}
+    for attempt in range(1, tries + 1):
+        replays = prog.replays
+        got = traced_kernels(lambda: case["run"](seed + attempt))
+        check(prog.replays == replays + 1, f"18 {case['label']}: the traced call "
+              f"was not one replay")
+        check(all(got[k] <= want[k] for k in want), f"18 {case['label']}: a "
+              f"replay's trace holds {got}, more than its capture recorded {want}")
+        if got == want:
+            break
+    check(got == want, f"18 {case['label']}: a replay's trace holds {got}, its "
+          f"capture recorded {want} ({tries} traces)")
+    print(f"18 {case['label']}: a replay's trace holds the recorded kernels "
+          f"{_launch_summary(prog.launches)} (trace {attempt})", flush=True)
+
+
+def replay_launches(owners) -> dict:
+    """K1, K2 and K3's launches in the replays of `owners`' programs alone
+    (no warm-up, no eager frame): each program's replays times the
+    launches recorded at its capture."""
+    n = {"K1": 0, "K2": 0, "K3": 0}
+    names = {"nn_gather_batched": "K1", "nn_batched": "K2", "nn_gn_batched": "K3"}
+    for owner in owners:
+        for prog in owner._programs.programs.values():
+            for name, (k, _) in prog.launches.items():
+                n[names[name]] += k * prog.replays
+    return n
+
+
+def replay_times(graph, call, reps: int = 5) -> dict:
+    """A captured graph's replay, medians of `reps`: its time on the card
+    (`device_ms`: events around a replay queued behind a
+    `torch.cuda._sleep` pad longer than the host's issue, so that the issue
+    is not in them; `events_ms`: the same without the pad), and the host's
+    time to issue one replay (`replay_us`) and one `call` (`estimate_us`),
+    each with the card idle before it."""
+    import statistics
+
+    import torch
+
+    out = {k: [] for k in ("device_ms", "events_ms", "replay_us", "estimate_us")}
+    for _ in range(reps):
+        for key, fn in (("replay_us", graph.replay), ("estimate_us", call)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out[key].append(1e6 * (time.perf_counter() - t0))
+        for key, pad in (("device_ms", REPLAY_PAD_CYCLES), ("events_ms", 0)):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if pad:
+                torch.cuda._sleep(pad)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            out[key].append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def estimate_eager(est, args, mode: str):
+    """One eager frame (`_frame_step` at seed 3), its pose on the host."""
+    dyn, static = est.frame_args(*args, key=3, mode=mode)
+    return type(est)._frame_step(est, *dyn, **static).pose.cpu()
+
+
 def profile_phases(dev) -> None:
     """scripts/profile_phases_torch.py's main on the card."""
     _script("profile_phases_torch").main(device=dev)
@@ -2481,6 +2930,10 @@ def main(argv: list[str]) -> int:
 
     if "--sweep" in argv:
         sweep_phase(knn_cuda, dev)
+        print(smi, flush=True)
+        return 0
+    if "--programs-only" in argv:
+        run_phase("18 compiled programs", programs_phase, Scene(dev), knn_cuda, dev, smi)
         print(smi, flush=True)
         return 0
     grouped = "--ungrouped" not in argv
@@ -2524,6 +2977,8 @@ def main(argv: list[str]) -> int:
         blind_launches = run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
         run_phase("16 scripts", scripts_phase, knn_cuda)
         gate_launches = run_phase("17 accuracy gates", gates_phase, sq, knn_cuda, dev)
+    program_launches = run_phase("18 compiled programs", programs_phase, sc, knn_cuda,
+                                 dev, smi)
 
     names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)
@@ -2534,6 +2989,7 @@ def main(argv: list[str]) -> int:
         "mesh_launches": mesh_launches[k],
         "blind_path_launches": blind_launches[k],
         "gate_launches": gate_launches[k],
+        "program_launches": program_launches[k],
         **stats[k], "library_ms": None,
     } for k in ("K1", "K2", "K3")]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -443,13 +443,18 @@ def main(device="cuda", *, width: int = 640, height: int = 480,
 
     `ms_per_frame` times the frame program alone: `Estimator.estimate` on
     the ground-truth prior with a new seed each rep, `reps` reps after one
-    warm-up (which builds the kernels at first use), the loop ending in the
-    pose copied to the host. `e2e_tracker_ms_per_frame` times `Tracker.step`
+    warm-up (which builds the kernels at first use and captures the
+    program: utils/program.py), the loop ending in the pose copied to the
+    host. `eager_ms_per_frame` times the same frames through the traced
+    function run eagerly (`Estimator._frame_step`), in the same run.
+    `e2e_tracker_ms_per_frame` times `Tracker.step`
     (the number a control loop sees) on a state seeded at the ground truth:
     `tracker_warmup` steps, then 2 x reps timed. Then one frame under
     torch.profiler: `device_ms_per_frame` (a lower bound, see the module
     notes), `idle_share` = 1 - device / wall ms of that frame, and
-    `aten_calls_per_frame`; null on the CPU, which has no device time."""
+    `aten_calls_per_frame` (on the card, the host's operators outside the
+    replayed graph: a replay issues none of the frame's own); null on the
+    CPU, which has no device time."""
     from .datasets import default_object_pose, hand_base_for_grasp, render_frame_fast
     from .models import Estimator, ObjectModel, Tracker, make_t42_hand
     from .utils import meshio
@@ -481,6 +486,14 @@ def main(device="cuda", *, width: int = 640, height: int = 480,
     out.pose.cpu()
     dt = (time.perf_counter() - t0) / reps
 
+    args = [est.frame_args(depth, prev, hb, hq, key=i + 1, mode="track")
+            for i in range(reps)]
+    t0 = time.perf_counter()
+    for dyn, static in args:
+        out = est._frame_step(*dyn, **static)
+    out.pose.cpu()
+    dt_eager = (time.perf_counter() - t0) / reps
+
     trk = Tracker(est, seed=0)
     trk.state = trk.state._replace(pose=prev, initialized=True, fitness=1.0)
     for _ in range(tracker_warmup):
@@ -501,6 +514,7 @@ def main(device="cuda", *, width: int = 640, height: int = 480,
         "unit": "hypotheses/sec/chip",
         "vs_baseline": round(value / BASELINE_TARGET, 3),
         "ms_per_frame": round(dt * 1000.0, 2),
+        "eager_ms_per_frame": round(dt_eager * 1000.0, 2),
         "e2e_tracker_ms_per_frame": round(dt_e2e * 1000.0, 2),
         "full_refine_equiv_per_sec": round(
             full_refine_equivalents_per_frame(cfg) / dt, 1),

@@ -13,7 +13,12 @@ crop, swarm init, self-occlusion mask and the PSO + ICP +
 render-and-compare search (`_search`). mode="track" searches around the
 prior; mode="init" (frame 0 and tracking-loss recovery) first refines the
 hand base (auto-armed), scores a dense orientation prescreen and seeds the
-swarm from it. The frame runs eagerly on the tensors' device.
+swarm from it.
+
+`estimate` runs a frame through the frame program of its mode and shapes
+(utils/program.py, the counterpart of the reference's `_step_jit`):
+captured once as a CUDA graph on the card and replayed, called directly on
+the CPU. `_frame_step` is the traced function, callable eagerly as it is.
 
 The correspondence searches go through kernel K1 (`corr_fn`, the default),
 or K2 when the caller gives `nn_fn`; with `IcpConfig.fused_gn` the in-scan
@@ -46,7 +51,7 @@ import torch
 
 from ..ops import icp, knn_cuda, preprocess, pso, render, score
 from ..parallel.mesh import is_writer, mesh_axis
-from ..utils import rng, se3
+from ..utils import program, rng, se3
 from ..utils.config import EstimatorConfig
 from .hand import HandModel
 from .object_model import ObjectModel
@@ -126,6 +131,8 @@ class Estimator:
         self.lo_fy = cam.fy / self.render_factor
         self.lo_cx = cam.cx / self.render_factor
         self.lo_cy = cam.cy / self.render_factor
+        # the frame programs, one per static key (utils/program.py)
+        self._programs = program.Programs()
 
     # -- frame program ------------------------------------------------------
 
@@ -328,8 +335,8 @@ class Estimator:
         half the swarm from the best of those and half strided across the
         whole grid regardless of score. Per object: [O,n_particles,4,4]."""
         cfg = self.cfg
-        (model_pts, model_normals, render_pts, render_normals, render_w,
-         _) = obj_tensors
+        model_pts, model_normals, render_pts, render_normals, render_w = \
+            obj_tensors[:5]
         cand = self._aligned_candidates(
             gen, se3.super_fibonacci_rotations(prescreen, gen), render_pts,
             render_normals, render_w, kr, centroid, trans_sigma)
@@ -365,7 +372,7 @@ class Estimator:
                                  ).round().astype(np.int64)
         return torch.cat([
             pso.take(cand, top),
-            cand[:, torch.as_tensor(stride_idx, device=cand.device)]], dim=1)
+            cand[:, program.constant(stride_idx, cand.device)]], dim=1)
 
     def _search(
         self,
@@ -415,12 +422,13 @@ class Estimator:
         O, n_hyp = prev_poses.shape[:2]
         dev = prev_poses.device
         (model_pts, model_normals, render_pts, render_normals, render_w,
-         symmetries) = obj_tensors
+         symmetries, slide_axis, slide_extent) = obj_tensors
         # workspace crop around each track, unless it would leave < 32 points
         roi_center = prev_poses[:, 0, :3, 3]
         d2c = torch.sum((scene.points - roi_center[:, None]) ** 2, dim=-1)
-        roi_r2 = torch.as_tensor(np.square(np.asarray(roi_radius, np.float64)),
-                                 dtype=d2c.dtype, device=dev).reshape(-1, 1)
+        roi_r2 = program.constant(
+            np.square(np.asarray(roi_radius, np.float64)).astype(np.float32),
+            dev).reshape(-1, 1)
         roi_w = weights * (d2c < roi_r2)
         weights = torch.where((torch.sum(roi_w, dim=-1) >= 32.0)[:, None],
                               roi_w, weights)                     # [O,Ns]
@@ -448,8 +456,8 @@ class Estimator:
                 # the best basin keeps ~2/3 of the swarm, the backups share the rest
                 per = max(1, (n_particles // 3) // (n_hyp - 1))
                 counts = [n_particles - per * (n_hyp - 1)] + [per] * (n_hyp - 1)
-                prior_idx = torch.as_tensor(np.repeat(np.arange(n_hyp), counts),
-                                            device=dev)
+                prior_idx = program.constant(np.repeat(np.arange(n_hyp), counts),
+                                             dev)
                 priors = prev_poses[:, prior_idx]
             poses0 = se3.perturb_pose(gen, priors, rot_sigma, trans_sigma,
                                       shape=(n_particles,))
@@ -466,7 +474,7 @@ class Estimator:
                     render_pts, render_normals, render_w, kr, centroid,
                     trans_sigma)
                 idx = np.linspace(0, n_particles - 1, n_explore).round().astype(np.int64)
-                explorer_seeds = global_init[:, torch.as_tensor(idx, device=dev)]
+                explorer_seeds = global_init[:, program.constant(idx, dev)]
 
         pso_cfg = dataclasses.replace(cfg.pso, particles=n_particles,
                                       iters=pso_iters,
@@ -493,6 +501,7 @@ class Estimator:
             prior_pose=prev_poses[:, 0],
             prior_valid=not init_scoring,
             explorer_seeds=explorer_seeds,
+            slide_axes=(slide_axis, slide_extent),
             observed_neutral=scene.neutral,
             observed_hi=(
                 scene.depth_full, scene.valid_full, scene.neutral_full, hd_hi,
@@ -536,21 +545,20 @@ class Estimator:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def frame_args(self, depth_m, prev_pose, hand_base=None, hand_q=None,
-                   key=None, *, mode: str = "track") -> tuple[tuple, dict]:
-        """Validated (positional, keyword) arguments of `_frame_step`, as
-        `estimate` passes them. Inputs may be numpy arrays or tensors."""
+    def _statics(self, mode: str) -> dict:
+        """The static arguments of `_frame_step` for `mode`: the reference's
+        static_argnames and the mode's scalars."""
         cfg = self.cfg
         tr = cfg.tracker
         if mode == "track":
-            static = dict(
+            return dict(
                 rot_sigma=cfg.pso.rot_sigma, trans_sigma=cfg.pso.trans_sigma,
                 roi_radius=max(1.5 * self.obj.diameter, 3.0 * cfg.pso.trans_sigma),
                 n_particles=cfg.pso.particles, pso_iters=cfg.pso.iters,
             )
-        elif mode == "init":
+        if mode == "init":
             iters = 2 * cfg.pso.iters
-            static = dict(
+            return dict(
                 rot_sigma=tr.reinit_rot_sigma, trans_sigma=tr.reinit_trans_sigma,
                 roi_radius=float("inf"),
                 n_particles=tr.reinit_particles, pso_iters=iters,
@@ -558,36 +566,51 @@ class Estimator:
                 resample_after=iters // 2, prescreen=tr.reinit_prescreen,
                 init_scoring=True,
             )
-        else:
-            raise ValueError(f"unknown mode {mode!r}")
-        depth_m = self._tensor(depth_m)
-        prev_pose = self._tensor(prev_pose)
-        cam = cfg.camera
-        if tuple(depth_m.shape) != (cam.height, cam.width):
+        raise ValueError(f"unknown mode {mode!r}")
+
+    def _inputs(self, depth_m, prev_pose, hand_base, hand_q,
+                n_particles: int) -> tuple:
+        """The frame's tensor inputs (depth, prior, hand base, joints),
+        validated by shape and with the hand's defaults filled in, as they
+        were given: numpy arrays or tensors."""
+        cam = self.cfg.camera
+        depth_shape = tuple(np.shape(depth_m))
+        if depth_shape != (cam.height, cam.width):
             raise ValueError(
-                f"depth shape {tuple(depth_m.shape)} != camera "
+                f"depth shape {depth_shape} != camera "
                 f"({cam.height}, {cam.width}); fix CameraIntrinsics")
-        if tuple(prev_pose.shape)[-2:] != (4, 4) or prev_pose.dim() not in (2, 3):
+        prior_shape = tuple(np.shape(prev_pose))
+        if prior_shape[-2:] != (4, 4) or len(prior_shape) not in (2, 3):
             raise ValueError(
-                f"prev_pose must be [4,4] or [n_hyp,4,4], got {tuple(prev_pose.shape)}")
+                f"prev_pose must be [4,4] or [n_hyp,4,4], got {prior_shape}")
         J = self.hand.n_joints if self.hand is not None else 1
-        hand_base = self._tensor(np.eye(4) if hand_base is None else hand_base)
-        hand_q = self._tensor(np.zeros(J) if hand_q is None else hand_q)
-        if self.hand is not None and tuple(hand_q.shape) != (J,):
+        hand_base = np.eye(4) if hand_base is None else hand_base
+        hand_q = np.zeros(J) if hand_q is None else hand_q
+        if self.hand is not None and tuple(np.shape(hand_q)) != (J,):
             raise ValueError(
-                f"hand_q shape {tuple(hand_q.shape)} != ({J},) for this hand")
+                f"hand_q shape {tuple(np.shape(hand_q))} != ({J},) for this hand")
         # each prior needs particles on every shard
-        n_hyp = prev_pose.shape[0] if prev_pose.dim() == 3 else 1
-        per_shard = static["n_particles"] // self._shards
+        n_hyp = prior_shape[0] if len(prior_shape) == 3 else 1
+        per_shard = n_particles // self._shards
         if n_hyp > 1 and per_shard < 2 * n_hyp:
             raise ValueError(
                 f"{n_hyp} hypothesis priors need at least {2 * n_hyp} "
                 f"particles per shard; got {per_shard} "
-                f"(n_particles={static['n_particles']}"
+                f"(n_particles={n_particles}"
                 + (f" over {self._shards} shards)" if self.mesh is not None
                    else ")"))
-        dyn = (_generator(key, self.device), depth_m, prev_pose, hand_base,
-               hand_q, self.obj.tensors())
+        return depth_m, prev_pose, hand_base, hand_q
+
+    def frame_args(self, depth_m, prev_pose, hand_base=None, hand_q=None,
+                   key=None, *, mode: str = "track") -> tuple[tuple, dict]:
+        """Validated (positional, keyword) arguments of `_frame_step` on the
+        estimator's device, for an eager call. Inputs may be numpy arrays or
+        tensors."""
+        static = self._statics(mode)
+        inputs = self._inputs(depth_m, prev_pose, hand_base, hand_q,
+                              static["n_particles"])
+        dyn = (_generator(key, self.device), *map(self._tensor, inputs),
+               self.obj.tensors())
         return dyn, static
 
     @torch.no_grad()
@@ -595,11 +618,24 @@ class Estimator:
                  key=None, *, mode: str = "track") -> FrameResult:
         """One frame -> SE(3): mode='track' searches around prev_pose;
         mode='init' runs the global search (frame 0, tracking-loss
-        recovery). `key` is an int seed, a torch.Generator on the
-        estimator's device, or injected rng.Draws."""
-        dyn, static = self.frame_args(depth_m, prev_pose, hand_base, hand_q,
-                                      key, mode=mode)
-        return self._frame_step(*dyn, **static)
+        recovery). `key` is an int seed (None = 0): the frame runs through
+        the program of its mode and shapes (captured at its first call on
+        the card), with the draws of a torch.Generator seeded with it.
+        A torch.Generator on the estimator's device or injected rng.Draws
+        as `key`, and every frame of a sharded estimator, run `_frame_step`
+        eagerly: test surfaces and the mesh, which the programs do not
+        cover."""
+        if isinstance(key, (torch.Generator, rng.Draws)) or self.mesh is not None:
+            dyn, static = self.frame_args(depth_m, prev_pose, hand_base, hand_q,
+                                          key, mode=mode)
+            return self._frame_step(*dyn, **static)
+        static = self._statics(mode)
+        inputs = self._inputs(depth_m, prev_pose, hand_base, hand_q,
+                              static["n_particles"])
+        obj = self.obj.tensors()
+        return self._programs(
+            lambda src, *x, **st: self._frame_step(src.sources[0], *x, obj, **st),
+            [int(key or 0)], inputs, self.device, **static)
 
 
 class TrackerState(NamedTuple):

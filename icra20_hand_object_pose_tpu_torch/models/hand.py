@@ -172,8 +172,9 @@ class HandModel:
                 fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
                 tau=tau, radius=radius,
             )
-            i = torch.argmax(agree)
-            best_b, best_q = cands[i], cq[i]
+            # a one-element index: a 0-dim one reads its value on the host
+            i = torch.argmax(agree).reshape(1)
+            best_b, best_q = cands[i][0], cq[i][0]
             sr, st, sq = sr * anneal, st * anneal, sq * anneal
         return best_b
 

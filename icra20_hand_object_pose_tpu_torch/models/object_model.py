@@ -4,6 +4,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.pso import principal_axis
 from ..utils import meshio
 
 
@@ -13,6 +14,10 @@ class ObjectModel:
     model_pts/model_normals: [Nm,3] uniform surface samples (ICP target).
     render_pts/render_normals/render_w: [Nr,3]/[Nr,3]/[Nr] scoring samples.
     symmetries: [S,4,4] discrete symmetry group (identity alone if none).
+    slide_axis/slide_extent: [3]/[] the model cloud's principal axis and
+                its extent along it (ops/pso.principal_axis), made here
+                once: the eigensolver reads its status on the host, which
+                a captured frame program cannot.
     diameter:   mesh bounding diameter (meters).
     """
 
@@ -63,6 +68,7 @@ class ObjectModel:
         self.render_normals = t(render_normals)
         self.render_w = t(render_w)
         self.symmetries = t(symmetries)
+        self.slide_axis, self.slide_extent = principal_axis(self.model_pts)
         self.diameter = float(diameter)
         self.centroid = (None if centroid is None
                          else np.asarray(centroid, np.float32))
@@ -74,6 +80,8 @@ class ObjectModel:
 
     def tensors(self) -> tuple:
         """(model_pts, model_normals, render_pts, render_normals, render_w,
-        symmetries) — the per-object inputs of the frame program."""
+        symmetries, slide_axis, slide_extent) — the per-object inputs of
+        the frame program."""
         return (self.model_pts, self.model_normals, self.render_pts,
-                self.render_normals, self.render_w, self.symmetries)
+                self.render_normals, self.render_w, self.symmetries,
+                self.slide_axis, self.slide_extent)

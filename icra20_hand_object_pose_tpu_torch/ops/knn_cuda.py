@@ -30,7 +30,9 @@ each, searched in one launch (parallel/sharding.py).
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
 other. `<wrapper>.launches` counts kernel launches and `<wrapper>.shapes`
-counts them by (P, B, Ns, Nm).
+counts them by (P, B, Ns, Nm). A launch recorded into a CUDA graph is
+counted when the graph replays (utils/program.py: `launch_counts`,
+`launches_since` and `add_launches`).
 """
 from __future__ import annotations
 
@@ -315,8 +317,13 @@ _ARRIVED: dict[torch.device, torch.Tensor] = {}
 def _arrival_counts(device: torch.device, P: int) -> torch.Tensor:
     """K3's per-particle arrival counters on `device`: zero between launches
     (the kernel resets what it counts), made once and grown when P does.
-    Shared by every K3 launch on the device, so those launches must not
-    overlap: the port issues them on one stream."""
+    Shared by every eager K3 launch on the device, so those launches must
+    not overlap: the port issues them on one stream. A launch captured into
+    a CUDA graph gets counters of its own from the graph's pool instead:
+    the shared tensor is replaced, and the old one freed, when a larger P
+    appears, while a graph would go on writing the address it captured."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return torch.zeros((P,), dtype=torch.int32, device=device)
     counts = _ARRIVED.get(device)
     if counts is None or counts.numel() < P:
         counts = torch.zeros((max(P, 1024),), dtype=torch.int32, device=device)
@@ -468,6 +475,36 @@ def nn_gn_batched(
 
 nn_gn_batched.launches = 0
 nn_gn_batched.shapes = collections.Counter()
+
+
+_COUNTED = (nn_gather_batched, nn_batched, nn_gn_batched)
+
+
+def launch_counts() -> dict:
+    """Each wrapper's (launches, shapes) as they stand: K1, K2, K3 by name."""
+    return {fn.__name__: (fn.launches, collections.Counter(fn.shapes))
+            for fn in _COUNTED}
+
+
+def launches_since(before: dict) -> dict:
+    """The launches counted since `before` (a `launch_counts` result), taken
+    back out of the counters: what a CUDA graph's capture recorded, which
+    launched nothing. `add_launches` counts them once per replay."""
+    out = {}
+    for fn in _COUNTED:
+        n0, shapes0 = before[fn.__name__]
+        out[fn.__name__] = (fn.launches - n0, fn.shapes - shapes0)
+        fn.launches = n0
+        fn.shapes -= out[fn.__name__][1]
+    return out
+
+
+def add_launches(recorded: dict) -> None:
+    """Counts `recorded` (a `launches_since` result) as launched."""
+    for fn in _COUNTED:
+        n, shapes = recorded.get(fn.__name__, (0, ()))
+        fn.launches += n
+        fn.shapes.update(shapes)
 
 
 def _fold(t: torch.Tensor) -> torch.Tensor:

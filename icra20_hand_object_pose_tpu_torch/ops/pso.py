@@ -72,6 +72,17 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
+def principal_axis(model_pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A model cloud's [Nm,3] principal axis (the eigenvector of its
+    scatter's largest eigenvalue, model frame) and its extent along it:
+    the axial slides' direction and reach ([3], scalar)."""
+    Xc = model_pts - torch.mean(model_pts, dim=0)
+    _, evecs = torch.linalg.eigh(Xc.T @ Xc)
+    ax = evecs[:, -1].contiguous()
+    proj = Xc @ ax
+    return ax, torch.max(proj) - torch.min(proj)
+
+
 def score_particles(
     poses: torch.Tensor,           # [P,4,4]          library: [O,P,4,4]
     render_pts: torch.Tensor,      # [Nr,3]                    [O,Nr,3]
@@ -220,6 +231,7 @@ def pso(
     prior_pose: torch.Tensor | None = None,
     prior_valid: bool = True,
     explorer_seeds: torch.Tensor | None = None,
+    slide_axes: tuple,
 ) -> PsoResult:
     """Annealed swarm search over SE(3) with in-loop batched ICP refine, for
     a library of O objects at once (a single object is a library of one:
@@ -232,8 +244,11 @@ def pso(
     is the full-resolution scoring tier of the polish and finisher (its
     images [1|O,H,W]); render_vis [O,Nr] the frame-constant self-occlusion
     sample mask; prior_pose [O,4,4]; explorer_seeds [O,E,4,4] global seeds
-    refined outside the swarm. With `group` the swarm is this rank's share
-    of one split over the group's ranks (module docstring)."""
+    refined outside the swarm; slide_axes ([O,3], [O]) each object's
+    `principal_axis`, computed with its model (eigh checks its result on
+    the host, so a captured program cannot compute it). With
+    `group` the swarm is this rank's share of one split over the group's
+    ranks (module docstring)."""
     O, P = poses0.shape[:2]
     dev = poses0.device
     n_resample = max(1, int(round(P * pso_cfg.elite_frac))) if P > 1 else 0
@@ -369,7 +384,10 @@ def pso(
                 poses = poses.clone()
                 poses[rows, worst] = fresh
                 fitness = fitness.clone()
-                fitness[rows, worst] = -float("inf")
+                # a value made on the device: a Python number would be
+                # copied from the host, which a CUDA graph cannot capture
+                fitness[rows, worst] = torch.full(worst.shape, -float("inf"),
+                                                  dtype=fitness.dtype, device=dev)
         sig = sig * pso_cfg.sigma_decay
         trace.append(best_fit)
     trace = (torch.stack(trace, dim=1) if trace
@@ -393,18 +411,11 @@ def pso(
             [cands, pick(refined_seeds, torch.argmax(f_exp, dim=1))[:, None]], dim=1)
     n_slide = pso_cfg.slide_proposals
     if n_slide > 1:
-        # each object's principal axis, its extent along it and the axis in
-        # the camera frame: a few small products and one eigh per object,
-        # so a library member gets the numbers it gets alone
-        extent, d_cam = [], []
-        for x, bp in zip(model_pts, best_pose):
-            Xc = x - torch.mean(x, dim=0)
-            _, evecs = torch.linalg.eigh(Xc.T @ Xc)
-            ax = evecs[:, -1]                                  # model frame
-            proj = Xc @ ax
-            extent.append(torch.max(proj) - torch.min(proj))
-            d_cam.append(bp[:3, :3] @ ax)                      # camera frame
-        extent, d_cam = torch.stack(extent), torch.stack(d_cam)   # [O], [O,3]
+        # each object's principal axis in the camera frame and its extent
+        # along it, one object at a time, so a library member gets the
+        # numbers it gets alone
+        axes, extent = slide_axes                              # [O,3], [O]
+        d_cam = torch.stack([bp[:3, :3] @ ax for bp, ax in zip(best_pose, axes)])
         half = n_slide // 2
         fr = (torch.arange(1, half + 1, dtype=poses0.dtype, device=dev) / half
               * pso_cfg.slide_max_frac)
@@ -470,7 +481,7 @@ def pso(
             score_fn_fin = partial(score_fn_hi, mxu_tables=mxu_fin)
         R = max(1, pso_cfg.finish_sigma_rungs)
         ladder = torch.pow(
-            torch.tensor(pso_cfg.sigma_decay, dtype=poses0.dtype, device=dev),
+            torch.full((), pso_cfg.sigma_decay, dtype=poses0.dtype, device=dev),
             torch.arange(Pf, dtype=poses0.dtype, device=dev) % R,
         )[:, None]
         iter_decay = pso_cfg.sigma_decay ** R

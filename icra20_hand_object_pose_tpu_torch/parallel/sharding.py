@@ -48,7 +48,7 @@ import torch.distributed as dist
 from ..models.estimator import Estimator, FrameResult, _ckpt_path, _generator, _split
 from ..models.hand import HandModel
 from ..models.object_model import ObjectModel
-from ..utils import rng, se3
+from ..utils import program, rng, se3
 from ..utils.config import EstimatorConfig
 from .mesh import all_gather, is_writer, make_mesh, mesh_axis  # noqa: F401
 
@@ -194,10 +194,45 @@ class LibrarySweep:
                            eye.expand(s_max - o.symmetries.shape[0], 4, 4)])
                 for o in local
             ]),
+            torch.stack([o.slide_axis for o in local]),
+            torch.stack([o.slide_extent for o in local]),
         )
         self._diameters = np.asarray([o.diameter for o in local], np.float64)
+        # the two programs, one per mode and prior shape (utils/program.py)
+        self._programs = program.Programs()
 
     # -- the two programs ----------------------------------------------------
+
+    def _statics(self, mode: str) -> dict:
+        """`Estimator._statics` of `mode`, with one ROI radius per object of
+        this rank when tracking."""
+        static = self._est._statics(mode)
+        if mode == "track":
+            static["roi_radius"] = np.maximum(1.5 * self._diameters,
+                                              3.0 * self.cfg.pso.trans_sigma)
+        return static
+
+    def _sweep_step(self, gens, depths, prev, hand_bases, hand_qs, *,
+                    prep_gen=None, init_scoring=False, **search) -> FrameResult:
+        """The traced program of this rank's objects (the counterpart of the
+        reference's `_sweep_step` / `_sweep_step_shared`): the scene preps,
+        then `Estimator._search` over the stacked preps. `gens` holds one
+        source per object; the inputs are this rank's ([n,...], one frame
+        when shared), `prev` [n,4,4] or [n,Hy,4,4]. A shared scene is
+        prepared once on object 0's stream (the per-scene order):
+        `prep_gen`, or the first source."""
+        est = self._est
+        if self.shared_scene:
+            preps = [est._scene_prep(prep_gen or gens.sources[0], depths,
+                                     hand_bases, hand_qs, init_scoring)]
+        else:
+            preps = [est._scene_prep(g, depths[o], hand_bases[o], hand_qs[o],
+                                     init_scoring)
+                     for o, g in enumerate(gens.sources)]
+        return est._search(
+            gens, est._stack_preps(preps),
+            prev if prev.dim() == 4 else prev[:, None],
+            self._obj_tensors, init_scoring=init_scoring, **search)
 
     @torch.no_grad()
     def _run(self, keys, depths, prev, hand_bases, hand_qs, mode: str) -> FrameResult:
@@ -205,45 +240,33 @@ class LibrarySweep:
         the arguments `Estimator.frame_args` builds for `mode`. Takes every
         object's inputs: `keys` one seed (or torch.Generator, or rng.Draws)
         per object, `prev` [O,4,4] or [O,Hy,4,4], depths etc. [O,...] (one
-        frame when shared); every field of the result is [hi - lo, ...]."""
-        cfg, est = self.cfg, self._est
-        tr = cfg.tracker
-        if mode == "track":
-            static = dict(
-                rot_sigma=cfg.pso.rot_sigma, trans_sigma=cfg.pso.trans_sigma,
-                roi_radius=np.maximum(1.5 * self._diameters,
-                                      3.0 * cfg.pso.trans_sigma),
-                n_particles=cfg.pso.particles, pso_iters=cfg.pso.iters,
-            )
-        elif mode == "init":
-            iters = 2 * cfg.pso.iters
-            static = dict(
-                rot_sigma=tr.reinit_rot_sigma, trans_sigma=tr.reinit_trans_sigma,
-                roi_radius=float("inf"),
-                n_particles=tr.reinit_particles, pso_iters=iters,
-                resample_after=iters // 2, prescreen=tr.reinit_prescreen,
-                init_scoring=True,
-            )
-        else:
-            raise ValueError(f"unknown mode {mode!r}")
-        init = mode == "init"
+        frame when shared); every field of the result is [hi - lo, ...].
+
+        Int seeds without a mesh run the program of this mode and prior
+        shape (utils/program.py, the counterpart of `_sweep_jit`: captured
+        once on the card, called directly on the CPU; the sweep's shared
+        scene and object slice are fixed, so each sweep keeps its own).
+        Generators, injected draws and a mesh's rank run `_sweep_step`
+        eagerly."""
+        static = self._statics(mode)
         lo, hi = self._lo, self._hi
+        if self._group is None and all(
+                isinstance(k, (int, np.integer)) for k in keys):
+            return self._programs(self._sweep_step, keys,
+                                  (depths, prev, hand_bases, hand_qs),
+                                  self.device, **static)
+        est = self._est
         gens = rng.Stack([_generator(k, self.device) for k in keys[lo:hi]])
         depths, prev = est._tensor(depths), est._tensor(prev)[lo:hi]
         hand_bases, hand_qs = est._tensor(hand_bases), est._tensor(hand_qs)
         if self.shared_scene:
-            # one prep for all, on object 0's stream (the per-scene order);
-            # a rank without object 0 draws that stream for the prep alone
-            g0 = gens.sources[0] if lo == 0 else _generator(keys[0], self.device)
-            preps = [est._scene_prep(g0, depths, hand_bases, hand_qs, init)]
+            # a rank without object 0 draws object 0's stream for the prep
+            if lo != 0:
+                static["prep_gen"] = _generator(keys[0], self.device)
         else:
-            # object-independent work on the objects' images, frame by frame
-            preps = [est._scene_prep(g, depths[o], hand_bases[o], hand_qs[o], init)
-                     for o, g in zip(range(lo, hi), gens.sources)]
-        return est._search(
-            gens, est._stack_preps(preps),
-            prev if prev.dim() == 4 else prev[:, None],
-            self._obj_tensors, **static)
+            depths, hand_bases, hand_qs = (depths[lo:hi], hand_bases[lo:hi],
+                                           hand_qs[lo:hi])
+        return self._sweep_step(gens, depths, prev, hand_bases, hand_qs, **static)
 
     # -- public API ----------------------------------------------------------
 
@@ -382,21 +405,21 @@ class LibrarySweep:
         O, est = self.n_objects, self._est
         cam = self.cfg.camera
         J = est.hand.n_joints if est.hand is not None else 1
-        depths = est._tensor(depths)
+        shape = tuple(np.shape(depths))
         if self.shared_scene:
-            if depths.dim() != 2:
+            if len(shape) != 2:
                 raise ValueError(
-                    f"shared_scene takes ONE frame [H,W], got {tuple(depths.shape)}")
+                    f"shared_scene takes ONE frame [H,W], got {shape}")
             lead = ()
         else:
-            if depths.dim() != 3 or depths.shape[0] != O:
+            if len(shape) != 3 or shape[0] != O:
                 raise ValueError(
                     f"per-scene sweep takes [O,H,W] depths (O={O}), got "
-                    f"{tuple(depths.shape)}; use shared_scene=True for one frame")
+                    f"{shape}; use shared_scene=True for one frame")
             lead = (O,)
-        if tuple(depths.shape[-2:]) != (cam.height, cam.width):
+        if shape[-2:] != (cam.height, cam.width):
             raise ValueError(
-                f"depth shape {tuple(depths.shape[-2:])} != camera "
+                f"depth shape {shape[-2:]} != camera "
                 f"({cam.height}, {cam.width}); fix CameraIntrinsics")
         if hand_bases is None:
             hand_bases = torch.eye(4, device=self.device).expand(lead + (4, 4))

@@ -49,7 +49,8 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    # no constant made on the host: a CUDA graph cannot capture its copy
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -145,8 +146,8 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # [0, 0, 0, 1] made on the device (a host constant cannot be captured)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

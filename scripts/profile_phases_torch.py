@@ -2,8 +2,8 @@
 """Per-phase time of the port's tracked frame on one device (counterpart of
 scripts/profile_phases.py), at BASELINE config 3.
 
-The frame is one eager program, so its phases are isolated by running
-ablated variants and differencing:
+The frame's phases are isolated by running ablated variants and
+differencing:
 
     hand_tensors  = Estimator._hand_tensors alone  (VGA hand splat + FK)
     preprocess    = preprocess_frame alone
@@ -11,17 +11,25 @@ ablated variants and differencing:
     no_fin        = frame with finish_iters=0               -> + PSO scan
     full          = the production frame                    -> + finisher
 
+The split reads the frame run eagerly, one ATen operator at a time:
+`Estimator._frame_step` on `frame_args` of an int seed, as the hand and
+preprocessing parts run. Each frame variant also runs as `estimate` does on
+the card, as a replayed program (utils/program.py), into the
+`<key>_programs` keys: a replay issues none of the frame's operators, so
+only its wall and device ms are split.
+
 Each is timed with utils/profiling.PhaseTimer (a wait for the card at the
-end of every call): one warm-up call, then `reps` calls. The three frame
-variants take their reps in turns (no_scan, no_fin, full, no_scan, ...), so
-that a drift of the host's speed falls on all three alike: the frame is
-host-bound and its differences are small beside such drift. Each is also
-run once under torch.profiler: `<key>_device_ms` (a lower bound: the
-profiler loses events of few-microsecond kernels) and `<key>_aten_calls`,
-differenced like the times. `<key>_iqr_ms` is the spread of the wall time
-over the turns: the quartiles of the per-turn values (for the scan and the
-finisher, of the per-turn differences). A wall-time part whose spread
-reaches 0 is not resolved; its device ms and ATen calls still are.
+end of every call): one warm-up call (for a program, its capture), then
+`reps` calls. The frame variants take their reps in turns (no_scan, no_fin,
+full, each eager and replayed, then again), so that a drift of the host's
+speed falls on all of them alike: the eager frame is host-bound and its
+differences are small beside such drift. Each is also run once under
+torch.profiler: `<key>_device_ms` (a lower bound: the profiler loses events
+of few-microsecond kernels) and `<key>_aten_calls`, differenced like the
+times. `<key>_iqr_ms` is the spread of the wall time over the turns: the
+quartiles of the per-turn values (for the scan and the finisher, of the
+per-turn differences). A wall-time part whose spread reaches 0 is not
+resolved; its device ms and ATen calls still are.
 
     python3 scripts/profile_phases_torch.py [--device cuda] [--reps 8]
 
@@ -100,45 +108,62 @@ def main(device="cuda", *, width: int = 640, height: int = 480,
 
     gen = torch.Generator(device=est.device).manual_seed(0)
 
-    def frame(e):
+    def frame(e, eager):
         seeds = iter(range(1 << 30))
+        if eager:
+            def run():
+                dyn, static = e.frame_args(depth, prev, hbt, hqt, key=next(seeds),
+                                           mode="track")
+                return e._frame_step(*dyn, **static)
+            return run
         return lambda: e.estimate(depth, prev, hbt, hqt, key=next(seeds),
                                   mode="track")
 
+    variants = {"no_scan": est_for(dataclasses.replace(base_pso, iters=1,
+                                                       finish_iters=0)),
+                "no_fin": est_for(dataclasses.replace(base_pso, finish_iters=0)),
+                "full": est}
     fns = {
         "hand_tensors": lambda: est._hand_tensors(gen, hbt, hqt, depth),
         "preprocess": lambda: preprocess.preprocess_frame(
             gen, depth, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
             depth_min=0.1, depth_max=2.0, n_points=scene_points,
             render_factor=est.render_factor),
-        "no_scan": frame(est_for(dataclasses.replace(
-            base_pso, iters=1, finish_iters=0))),
-        "no_fin": frame(est_for(dataclasses.replace(base_pso, finish_iters=0))),
-        "full": frame(est),
+        **{k: frame(e, True) for k, e in variants.items()},
+        **{f"{k}_programs": frame(e, False) for k, e in variants.items()},
     }
     measure({k: fns[k] for k in ("hand_tensors", "preprocess")})
-    measure({k: fns[k] for k in ("no_scan", "no_fin", "full")})
+    measure({k: fns[k] for k in fns if k not in ("hand_tensors", "preprocess")})
     ms = {k: 1000.0 * timer.totals[k] / timer.counts[k] for k in fns}
     with torch.no_grad():
         profs = {k: profile_counts(fn, device=device) for k, fn in fns.items()}
     dev_ms = {k: p["device_ms"] for k, p in profs.items()}
     calls = {k: p["aten_calls"] for k, p in profs.items()}
 
-    def split(d):
+    def split(d, suffix=""):
+        return {FIXED: d["no_scan" + suffix],
+                SCAN: d["no_fin" + suffix] - d["no_scan" + suffix],
+                FINISH: d["full" + suffix] - d["no_fin" + suffix],
+                "frame_total": d["full" + suffix]}
+
+    def parts(d):
         return {"hand_tensors": d["hand_tensors"], "preprocess": d["preprocess"],
-                FIXED: d["no_scan"], SCAN: d["no_fin"] - d["no_scan"],
-                FINISH: d["full"] - d["no_fin"], "frame_total": d["full"]}
+                **split(d)}
 
     on_card = torch.device(device).type == "cuda"
-    iqr = split({k: np.asarray(v) for k, v in turns.items()})
+    iqr = parts({k: np.asarray(v) for k, v in turns.items()})
     rec = {}
-    for (key, t), d, n in zip(split(ms).items(), split(dev_ms).values(),
-                              split(calls).values()):
+    for (key, t), d, n in zip(parts(ms).items(), parts(dev_ms).values(),
+                              parts(calls).values()):
         rec[key] = round(t, 3)
         rec[f"{key}_iqr_ms"] = [round(float(q), 3)
                                 for q in np.percentile(iqr[key], [25, 75])]
         rec[f"{key}_device_ms"] = round(d, 3) if on_card else None
         rec[f"{key}_aten_calls"] = n
+    for (key, t), d in zip(split(ms, "_programs").items(),
+                           split(dev_ms, "_programs").values()):
+        rec[f"{key}_programs"] = round(t, 3)
+        rec[f"{key}_programs_device_ms"] = round(d, 3) if on_card else None
     print(json.dumps(rec, indent=1), flush=True)
     print(timer.report(), file=sys.stderr, flush=True)
     return rec

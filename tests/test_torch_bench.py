@@ -27,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(width=64, height=48, fov_f=57.6, particles=32, scene_points=256,
             model_points=256, render_points=512)
 MAIN_KEYS = {"metric", "value", "unit", "vs_baseline", "ms_per_frame",
-             "e2e_tracker_ms_per_frame", "full_refine_equiv_per_sec",
+             "eager_ms_per_frame", "e2e_tracker_ms_per_frame", "full_refine_equiv_per_sec",
              "device_ms_per_frame", "idle_share", "aten_calls_per_frame",
              "device", "power_limit_w"}
 SWEEP_KEYS = {"metric", "value", "unit", "vs_baseline", "hyp_per_sec_chip",
@@ -59,6 +59,7 @@ def test_main_prints_reference_keys(capsys):
     assert out["metric"] == "icp_refined_pose_hypotheses_per_sec_per_chip_512p"
     assert out["unit"] == "hypotheses/sec/chip"
     assert out["value"] > 0 and out["ms_per_frame"] > 0
+    assert out["eager_ms_per_frame"] > 0
     assert out["e2e_tracker_ms_per_frame"] > 0 and out["aten_calls_per_frame"] > 0
     # a CPU run names no device metric
     assert out["device"] == "cpu" and out["power_limit_w"] is None
@@ -172,9 +173,13 @@ def test_profile_phases_prints_every_key(capsys):
             "pso_scan_9iters", "finisher", "frame_total"]
     assert out == rec
     assert set(out) == {f"{k}{s}" for k in keys
-                        for s in ("", "_iqr_ms", "_device_ms", "_aten_calls")}
+                        for s in ("", "_iqr_ms", "_device_ms", "_aten_calls")} | {
+        f"{k}{s}" for k in keys[2:] for s in ("_programs", "_programs_device_ms")}
     for k in keys:
         assert out[f"{k}_device_ms"] is None            # no device on the CPU
         lo, hi = out[f"{k}_iqr_ms"]                     # one turn: no spread
         assert lo == hi == pytest.approx(out[k], abs=2e-3)
+    for k in keys[2:]:
+        assert out[f"{k}_programs_device_ms"] is None
     assert out["frame_total"] > 0 and out["frame_total_aten_calls"] > 0
+    assert out["frame_total_programs"] > 0

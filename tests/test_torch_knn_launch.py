@@ -122,3 +122,50 @@ def test_k3_default_plan_follows_one_group(monkeypatch, P, G):
                            **gates)
     want = knn_cuda.gn_plan(per, Ns, Nm)
     assert plans == [(want.q, want.groups, want.scene_split)] * 2
+
+
+def test_capture_launches_count_once_per_replay(monkeypatch):
+    """A CUDA graph's capture records launches without making them: the
+    counts the wrappers took while it recorded come back out of the
+    counters (`launches_since`) and are added once per replay
+    (`add_launches`). The CPU program's plain path counts each wrapper call
+    as it runs and records nothing to replay (the wrappers' launches
+    recorded with no card, as above)."""
+    import collections
+
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.utils import program
+
+    for fn in knn_cuda._COUNTED:
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "shapes", collections.Counter())
+    monkeypatch.setattr(knn_cuda, "_route", lambda *a, **k: True)
+    monkeypatch.setattr(knn_cuda, "_entry_points", lambda: (None, None, None))
+    monkeypatch.setattr(knn_cuda, "_launch", lambda *args: None)
+    z = torch.zeros
+
+    def body(src, query, ref):
+        knn_cuda.nn_gather_batched(query, ref, ref)
+        knn_cuda.nn_gather_batched(query, ref, ref)
+        knn_cuda.nn_gn_batched(query[0], query[0], z(8), ref, ref, maxd2=1e-4,
+                               min_cos=0.5)
+        return (ref,)
+
+    before = knn_cuda.launch_counts()
+    body(None, z(1, 8, 3), z(4, 16, 3))                 # as a capture records
+    rec = knn_cuda.launches_since(before)
+    assert knn_cuda.launch_counts() == before
+    assert rec["nn_gather_batched"] == (2, collections.Counter({(4, 1, 8, 16): 2}))
+    assert rec["nn_gn_batched"] == (1, collections.Counter({(4, 1, 8, 16): 1}))
+    assert rec["nn_batched"] == (0, collections.Counter())
+    for _ in range(3):                                  # three replays
+        knn_cuda.add_launches(rec)
+    assert knn_cuda.nn_gather_batched.launches == 6
+    assert knn_cuda.nn_gather_batched.shapes == {(4, 1, 8, 16): 6}
+    assert knn_cuda.nn_gn_batched.launches == 3 and knn_cuda.nn_batched.launches == 0
+
+    prog = program.Program(torch.device("cpu"), 1)
+    prog(body, [0], (z(1, 8, 3), z(4, 16, 3)), {})
+    assert knn_cuda.nn_gather_batched.launches == 8 and knn_cuda.nn_gn_batched.launches == 4
+    assert prog.launches == {} and prog.replays == 0

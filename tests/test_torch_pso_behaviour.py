@@ -54,10 +54,13 @@ def _gen(seed: int) -> rng.Stack:
 
 def _pso(seed, poses0, scene: dict, **cfgs):
     """pso.pso of one object (the library form at O = 1) on the reference
-    scene `scene` from the swarm `poses0` [P,4,4]; returns its result with
-    the object axis dropped."""
+    scene `scene` from the swarm `poses0` [P,4,4], with the model cloud's
+    principal axis as ObjectModel computes it; returns its result with the
+    object axis dropped."""
     args = [_t(scene[k])[None] for k in SCENE]
-    res = pso.pso(_gen(seed), _t(poses0)[None], *args, splat_radius=1, **CAM, **cfgs)
+    axis, extent = pso.principal_axis(_t(scene["model_pts"]))
+    res = pso.pso(_gen(seed), _t(poses0)[None], *args, splat_radius=1, **CAM,
+                  slide_axes=(axis[None], extent[None]), **cfgs)
     return pso.PsoResult(*(t[0] for t in res))
 
 

@@ -947,12 +947,23 @@ def host_draws():
     (`utils/rng.py`: `normal`, `uniform`, `permutation`) comes from a host
     torch.Generator, one per site generator, seeded from that generator's
     `initial_seed()`, and is moved to the generator's device: a run on the
-    card and a run on the CPU draw the same numbers. The package's
-    functions are restored on exit."""
+    card and a run on the CPU draw the same numbers. A draw from the host
+    cannot be captured in a CUDA graph, so `Estimator.estimate` runs an int
+    seed's frame eagerly, on the generator a program would seed with it
+    (utils/program.py). The package's functions are restored on exit."""
+    from icra20_hand_object_pose_tpu_torch.models.estimator import (
+        Estimator, _generator,
+    )
     from icra20_hand_object_pose_tpu_torch.utils import rng
 
     orig = rng.normal, rng.uniform, rng.permutation
+    orig_estimate = Estimator.estimate
     hosts: dict = {}
+
+    def estimate(self, *args, key=None, mode="track"):
+        if not isinstance(key, (torch.Generator, rng.Draws)):
+            key = _generator(key, self.device)
+        return orig_estimate(self, *args, key=key, mode=mode)
 
     def host(gen: torch.Generator) -> torch.Generator:
         got = hosts.get(id(gen))
@@ -977,10 +988,12 @@ def host_draws():
         return orig[2](gen, n)
 
     rng.normal, rng.uniform, rng.permutation = normal, uniform, permutation
+    Estimator.estimate = estimate
     try:
         yield
     finally:
         rng.normal, rng.uniform, rng.permutation = orig
+        Estimator.estimate = orig_estimate
 
 
 # the levels and seeds of phase 17 (d), and its hard check on the
