@@ -234,7 +234,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      frame, both under fused_gn, the tracked frame through nn_fn, both in
      pixel mode, and LibrarySweep 8 x 512 per scene and shared, track and
      init; each later call must replay (the program's replay counter rises
-     by one, the traced method is not called); one more replay of each
+     by one, the traced method is not called); the same ten programs again
+     on fresh owners with the tracer on (utils/profiling.py), each still
+     bitwise eager, its graph holding the kernel nodes of the untraced
+     one and six event-record nodes (its five stages' marks), the untraced
+     graphs none; one more replay of each
      program under torch.profiler (after (d)'s timings: a profiler session
      slows every later replay's issue), whose K1, K2 and K3 kernels counted by
      name must equal the launches the program recorded at its capture; K1,
@@ -243,7 +247,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      by frame k+1's replay; (c) K3's shared arrival counters grown to 8192
      and the freed memory refilled after a K3 program was captured, then a
      fused_gn sweep init program (8 x 1024) captured, and the K3 program
-     replayed bitwise against eager; (d) each program's capture seconds,
+     replayed bitwise against eager; (d) each program's capture seconds
+     (the tracer's `program.capture` span) and stage split,
      each owner's pool bytes (its programs share one pool), Tracker.step
      ms/frame, the default init frame and the 8 x 512
      sweep step through the programs and eagerly in alternating turns, one
@@ -2623,6 +2628,81 @@ def alternating(label: str, smi: str, sides: dict, turns: int = PROGRAM_TURNS) -
     return med
 
 
+def program_cases(sc: Scene, lib, knn_cuda, track, init) -> tuple[list, dict]:
+    """Phase 18 (a)'s ten programs, each on its owner (made here, so its
+    programs are captured now) against its traced function run eagerly:
+    the cases (`program_case`) and the owners by name."""
+    import dataclasses
+
+    from icra20_hand_object_pose_tpu_torch.models import Estimator
+
+    cfg = sc.cfg
+    fused = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, fused_gn=True))
+    pixel = dataclasses.replace(cfg, score=dataclasses.replace(cfg.score, mode="pixel"))
+    est = Estimator(sc.obj, sc.hand, cfg)
+    est_f = Estimator(sc.obj, sc.hand, fused)
+    est_k2 = Estimator(sc.obj, sc.hand, cfg, nn_fn=knn_cuda.make_nn_fn())
+    est_px = Estimator(sc.obj, sc.hand, pixel)
+    cases = [estimate_case("config 3 track", est, track, "track"),
+             estimate_case("default init", est, init, "init"),
+             estimate_case("fused_gn track", est_f, track, "track"),
+             estimate_case("fused_gn init", est_f, init, "init"),
+             estimate_case("nn_fn track", est_k2, track, "track"),
+             estimate_case("pixel track", est_px, track, "track"),
+             estimate_case("pixel init", est_px, init, "init")]
+    sweeps = {"per-scene": lib.sweep(), "shared-scene": lib.sweep(shared_scene=True)}
+    for name, sw in sweeps.items():
+        for mode in ("track", "init"):
+            cases.append(sweep_case(f"LibrarySweep {LIB} x 512 {name} {mode}", sw,
+                                    lib, mode))
+    owners = {"config 3": est, "fused_gn": est_f, "nn_fn": est_k2, "pixel": est_px,
+              **{f"LibrarySweep {name}": sw for name, sw in sweeps.items()}}
+    return cases, owners
+
+
+def traced_cases(sc: Scene, lib, knn_cuda, track, init, untraced: list) -> list:
+    """Phase 18 (a) with the tracer on: the same programs on fresh owners,
+    each still bitwise eager; its graph holds the untraced graph's kernel
+    nodes and one event-record node per stage mark (the five stages and
+    the end), the untraced graph none. Returns each case with its capture
+    seconds (the `program.capture` spans, one a case, in order), its
+    graph's nodes and its last replay's stage ms."""
+    from icra20_hand_object_pose_tpu_torch.utils import profiling
+
+    was_on = profiling.tracing(True)
+    try:
+        profiling.reset()
+        cases, _ = program_cases(sc, lib, knn_cuda, track, init)
+        captures = [e - s for name, s, e, _, _ in profiling.TRACER.spans
+                    if name == "program.capture"]
+        profiling.reset()
+    finally:
+        profiling.tracing(was_on)
+    check(len(captures) == len(cases), f"18 (a): {len(captures)} captures traced "
+          f"for {len(cases)} programs")
+    for c, off, capture_s in zip(cases, untraced, captures):
+        prog, off_nodes = c["program"], off["program"].nodes()
+        nodes = prog.nodes()
+        check(off_nodes["event_record"] == 0, f"18 (a) {off['label']}: the untraced "
+              f"graph holds event-record nodes {dict(off_nodes)}")
+        check(nodes["kernel"] == off_nodes["kernel"], f"18 (a) {c['label']}: "
+              f"{nodes['kernel']} kernel nodes with the tracer on, "
+              f"{off_nodes['kernel']} off")
+        check([name for name, _ in prog.marks] == [*profiling.STAGES, None]
+              and nodes["event_record"] == len(prog.marks),
+              f"18 (a) {c['label']}: marks {[name for name, _ in prog.marks]}, "
+              f"nodes {dict(nodes)}")
+        prog.marks[-1][1].synchronize()
+        c.update(capture_s=capture_s, nodes=dict(nodes), stages_ms=[
+            round(a.elapsed_time(b), 3) for (_, a), (_, b) in zip(prog.marks,
+                                                                  prog.marks[1:])])
+        print(f"18 (a) {c['label']}, the tracer on: {nodes['kernel']} kernel nodes "
+              f"as untraced, {nodes['event_record']} event-record nodes, fields "
+              f"parting from eager {c['partings'] if any(c['partings'].values()) else 'none'}",
+              flush=True)
+    return cases
+
+
 def programs_phase(sc: Scene, knn_cuda, dev, smi: str) -> dict:
     """Phase 18 (module docstring): the compiled programs against the
     traced functions run eagerly, their aliasing, K3's counters, and their
@@ -2638,33 +2718,20 @@ def programs_phase(sc: Scene, knn_cuda, dev, smi: str) -> dict:
 
     cfg = sc.cfg
     fused = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, fused_gn=True))
-    pixel = dataclasses.replace(cfg, score=dataclasses.replace(cfg.score, mode="pixel"))
-    est = Estimator(sc.obj, sc.hand, cfg)
-    est_f = Estimator(sc.obj, sc.hand, fused)
-    est_k2 = Estimator(sc.obj, sc.hand, cfg, nn_fn=knn_cuda.make_nn_fn())
-    est_px = Estimator(sc.obj, sc.hand, pixel)
+    lib = Library(sc, dev, LIB_MESHES)
     track = (sc.depth, sc.pose_gt, sc.hand_base, sc.hand_q)
     init = (sc.depth, np.eye(4, dtype=np.float32), sc.hand_base, sc.hand_q)
     reset_counts(knn_cuda)
-    cases = [estimate_case("config 3 track", est, track, "track"),
-             estimate_case("default init", est, init, "init"),
-             estimate_case("fused_gn track", est_f, track, "track"),
-             estimate_case("fused_gn init", est_f, init, "init"),
-             estimate_case("nn_fn track", est_k2, track, "track"),
-             estimate_case("pixel track", est_px, track, "track"),
-             estimate_case("pixel init", est_px, init, "init")]
-    lib = Library(sc, dev, LIB_MESHES)
-    sweeps = {"per-scene": lib.sweep(), "shared-scene": lib.sweep(shared_scene=True)}
-    for name, sw in sweeps.items():
-        for mode in ("track", "init"):
-            cases.append(sweep_case(f"LibrarySweep {LIB} x 512 {name} {mode}", sw,
-                                    lib, mode))
-    owners = {"config 3": est, "fused_gn": est_f, "nn_fn": est_k2, "pixel": est_px,
-              **{f"LibrarySweep {name}": sw for name, sw in sweeps.items()}}
+    cases, owners = program_cases(sc, lib, knn_cuda, track, init)
+    est, est_f = owners["config 3"], owners["fused_gn"]
+    sweeps = {name: owners[f"LibrarySweep {name}"] for name in ("per-scene", "shared-scene")}
     n = replay_launches(owners.values())
     check(all(v > 0 for v in n.values()), f"18: a kernel never ran in a replay: {n}")
     print(f"18 (a): launches in the replays of phase 18 (a) {n}", flush=True)
     parted = {c["label"]: c["partings"] for c in cases if any(c["partings"].values())}
+    traced = traced_cases(sc, lib, knn_cuda, track, init, cases)
+    parted.update({f"{c['label']} (tracer on)": c["partings"] for c in traced
+                   if any(c["partings"].values())})
     # (b) frame k's result after frame k+1's replay
     tracker = Tracker(est, seed=0)
     tracker.state = tracker.state._replace(pose=sc.pose_gt, initialized=True, fitness=1.0)
@@ -2698,9 +2765,10 @@ def programs_phase(sc: Scene, knn_cuda, dev, smi: str) -> dict:
           f"eager after the counters grew: {c['partings']}")
     check(not parted, f"18 (a): programs part from eager: {parted}")
     # (d) costs and times
-    for c in cases:
-        print(f"18 (d) {c['label']}: capture {c['program'].capture_s:.2f} s "
-              f"(warm-up + capture); {smi}", flush=True)
+    for c in traced:
+        print(f"18 (d) {c['label']}: capture {c['capture_s']:.2f} s (warm-up + "
+              f"capture, the tracer on); stages of its last replay, ms "
+              f"{c['stages_ms']}; {smi}", flush=True)
     pools = {name: dict(programs=len(o._programs),
                         pool_mib=o._programs.pool_bytes() / 2 ** 20)
              for name, o in owners.items()}
@@ -2770,9 +2838,10 @@ def programs_phase(sc: Scene, knn_cuda, dev, smi: str) -> dict:
     for c in cases:
         traced_replay(c, dev)
     out = dict(
-        programs={c["label"]: dict(capture_s=c["program"].capture_s,
+        programs={c["label"]: dict(capture_s=t["capture_s"], stages_ms=t["stages_ms"],
+                                   kernel_nodes=t["nodes"]["kernel"],
                                    launches=_launch_summary(c["program"].launches))
-                  for c in cases},
+                  for c, t in zip(cases, traced)},
         pools=pools,
         tracker_ms_per_frame={k: v / PROGRAM_FRAMES for k, v in trk.items()},
         init_ms=ini, sweep_ms_per_step={k: v / 2 for k, v in swp.items()},

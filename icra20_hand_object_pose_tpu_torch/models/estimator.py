@@ -51,7 +51,7 @@ import torch
 
 from ..ops import icp, knn_cuda, preprocess, pso, render, score
 from ..parallel.mesh import is_writer, mesh_axis
-from ..utils import program, rng, se3
+from ..utils import profiling, program, rng, se3
 from ..utils.config import EstimatorConfig
 from .hand import HandModel
 from .object_model import ObjectModel
@@ -421,6 +421,7 @@ class Estimator:
                      if init_scoring else cfg.score)
         O, n_hyp = prev_poses.shape[:2]
         dev = prev_poses.device
+        profiling.stage("seed", dev)
         (model_pts, model_normals, render_pts, render_normals, render_w,
          symmetries, slide_axis, slide_extent) = obj_tensors
         # workspace crop around each track, unless it would leave < 32 points
@@ -518,7 +519,7 @@ class Estimator:
         )
         if hand_delta is None:
             hand_delta = torch.eye(4, dtype=best_pose.dtype, device=dev)[None]
-        return FrameResult(
+        out = FrameResult(
             pose=best_pose,
             fitness=result.best_fitness,
             coverage=result.best_coverage,
@@ -528,10 +529,13 @@ class Estimator:
             hyp_fitness=hyp_fitness,
             hand_delta=hand_delta.expand(O, 4, 4),
         )
+        profiling.stage_end(dev)
+        return out
 
     def _frame_step(self, gen, depth_m, prev_pose, hand_base, hand_q,
                     obj_tensors, *, init_scoring=False, **search) -> FrameResult:
         """One frame: scene prep, then the search as a library of one."""
+        profiling.stage("prep", depth_m.device)
         prep = self._stack_preps(
             [self._scene_prep(gen, depth_m, hand_base, hand_q, init_scoring)])
         prev_poses = prev_pose if prev_pose.dim() == 3 else prev_pose[None]
@@ -625,17 +629,19 @@ class Estimator:
         as `key`, and every frame of a sharded estimator, run `_frame_step`
         eagerly: test surfaces and the mesh, which the programs do not
         cover."""
-        if isinstance(key, (torch.Generator, rng.Draws)) or self.mesh is not None:
-            dyn, static = self.frame_args(depth_m, prev_pose, hand_base, hand_q,
-                                          key, mode=mode)
-            return self._frame_step(*dyn, **static)
-        static = self._statics(mode)
-        inputs = self._inputs(depth_m, prev_pose, hand_base, hand_q,
-                              static["n_particles"])
-        obj = self.obj.tensors()
-        return self._programs(
-            lambda src, *x, **st: self._frame_step(src.sources[0], *x, obj, **st),
-            [int(key or 0)], inputs, self.device, **static)
+        with profiling.span("estimate"), profiling.device_call(self.device):
+            profiling.count("slots.init" if mode == "init" else "slots.track")
+            if isinstance(key, (torch.Generator, rng.Draws)) or self.mesh is not None:
+                dyn, static = self.frame_args(depth_m, prev_pose, hand_base, hand_q,
+                                              key, mode=mode)
+                return self._frame_step(*dyn, **static)
+            static = self._statics(mode)
+            inputs = self._inputs(depth_m, prev_pose, hand_base, hand_q,
+                                  static["n_particles"])
+            obj = self.obj.tensors()
+            return self._programs(
+                lambda src, *x, **st: self._frame_step(src.sources[0], *x, obj, **st),
+                [int(key or 0)], inputs, self.device, **static)
 
 
 class TrackerState(NamedTuple):
@@ -719,17 +725,26 @@ class Tracker:
         return pose[None].repeat(H, 1, 1) if H > 1 else pose
 
     def step(self, depth_m, hand_base=None, hand_q=None) -> TrackResult:
+        with profiling.span("tracker.step", frame=True):
+            return self._step(depth_m, hand_base, hand_q)
+
+    def _step(self, depth_m, hand_base, hand_q) -> TrackResult:
         st = self.state
         H = self.est.cfg.tracker.n_hypotheses
-        need_init = self._need_init(st)
-        key, sub = _split(st.key)
-        if hand_base is not None and st.hand_delta is not None:
-            hand_base = st.hand_delta @ self.est._tensor(hand_base)
+        with profiling.span("tracker.watchdog"):
+            need_init = self._need_init(st)
         if need_init:
-            pose = self.est._tensor(st.pose)
-            prior = pose[None].repeat(H, 1, 1) if H > 1 else pose
-        else:
-            prior = self._priors(st)
+            profiling.count("init.steps")
+            profiling.count("init.needed")
+        key, sub = _split(st.key)
+        with profiling.span("tracker.priors"):
+            if hand_base is not None and st.hand_delta is not None:
+                hand_base = st.hand_delta @ self.est._tensor(hand_base)
+            if need_init:
+                pose = self.est._tensor(st.pose)
+                prior = pose[None].repeat(H, 1, 1) if H > 1 else pose
+            else:
+                prior = self._priors(st)
         out = self.est.estimate(depth_m, prior, hand_base, hand_q, key=sub,
                                 mode="init" if need_init else "track")
         # an auto-armed init frame's base correction (identity when it was

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..parallel.mesh import all_gather
-from ..utils import se3
+from ..utils import profiling, se3
 from ..utils.config import IcpConfig, PsoConfig, ScoreConfig
 from . import icp as icp_mod
 from . import render, score
@@ -348,6 +348,7 @@ def pso(
     best_pose, best_fit, best_cov = swarm_best(poses0, fitness, coverage)
     sig = 1.0
     trace = []
+    profiling.stage("scan", dev)
     for it in range(pso_cfg.iters):
         # 1. perturb; particle 0 pinned to the incumbent best (elitism)
         poses = se3.perturb_pose(
@@ -390,6 +391,7 @@ def pso(
                                                   dtype=fitness.dtype, device=dev)
         sig = sig * pso_cfg.sigma_decay
         trace.append(best_fit)
+    profiling.stage("polish", dev)
     trace = (torch.stack(trace, dim=1) if trace
              else torch.zeros((O, 0), device=dev))
 
@@ -463,6 +465,7 @@ def pso(
     term0 = (cov_w * (pick(s_sel, bi) - 1.0))[:, None] if use_cov else 0.0
 
     # Score-only annealed finisher around the selected best (no ICP).
+    profiling.stage("finish", dev)
     if pso_cfg.finish_iters > 0:
         fs0 = pso_cfg.finish_sigma_frac
         Pf = max(2, min(pso_cfg.finish_particles, 4 * P))

@@ -48,7 +48,7 @@ import torch.distributed as dist
 from ..models.estimator import Estimator, FrameResult, _ckpt_path, _generator, _split
 from ..models.hand import HandModel
 from ..models.object_model import ObjectModel
-from ..utils import program, rng, se3
+from ..utils import profiling, program, rng, se3
 from ..utils.config import EstimatorConfig
 from .mesh import all_gather, is_writer, make_mesh, mesh_axis  # noqa: F401
 
@@ -222,6 +222,7 @@ class LibrarySweep:
         prepared once on object 0's stream (the per-scene order):
         `prep_gen`, or the first source."""
         est = self._est
+        profiling.stage("prep", self.device)
         if self.shared_scene:
             preps = [est._scene_prep(prep_gen or gens.sources[0], depths,
                                      hand_bases, hand_qs, init_scoring)]
@@ -248,8 +249,13 @@ class LibrarySweep:
         scene and object slice are fixed, so each sweep keeps its own).
         Generators, injected draws and a mesh's rank run `_sweep_step`
         eagerly."""
+        with profiling.device_call(self.device):
+            return self._call(keys, depths, prev, hand_bases, hand_qs, mode)
+
+    def _call(self, keys, depths, prev, hand_bases, hand_qs, mode: str) -> FrameResult:
         static = self._statics(mode)
         lo, hi = self._lo, self._hi
+        profiling.count("slots.init" if mode == "init" else "slots.track", hi - lo)
         if self._group is None and all(
                 isinstance(k, (int, np.integer)) for k in keys):
             return self._programs(self._sweep_step, keys,
@@ -425,21 +431,36 @@ class LibrarySweep:
             hand_bases = torch.eye(4, device=self.device).expand(lead + (4, 4))
         if hand_qs is None:
             hand_qs = torch.zeros(lead + (J,), device=self.device)
-        key, keys_track, keys_init, prev_t, prev_i, need_init = self._prep(state)
-        # the one host read per frame: the two programs have different swarm
-        # shapes, so the mask of this rank's objects picks on the host which
-        # of them run. The state is the same on every rank, so every rank of
-        # a particle group runs the same programs (and their collectives)
-        m = need_init[self._lo:self._hi]
-        ni = m.cpu().numpy()
-        out_t = None if ni.all() else self._run(
-            keys_track, depths, prev_t, hand_bases, hand_qs, "track")
-        out_i = None if not ni.any() else self._run(
-            keys_init, depths, prev_i, hand_bases, hand_qs, "init")
-        merged = self._merge(m, out_t, out_i)
-        if self._group is not None:
-            merged = self._gather(merged)
-        return self._finish(state, key, need_init, *merged)
+        with profiling.span("sweep.step", frame=True):
+            with profiling.span("sweep.prep"):
+                key, keys_track, keys_init, prev_t, prev_i, need_init = \
+                    self._prep(state)
+            # the one host read per frame: the two programs have different
+            # swarm shapes, so the mask of this rank's objects picks on the
+            # host which of them run. The state is the same on every rank, so
+            # every rank of a particle group runs the same programs (and
+            # their collectives)
+            m = need_init[self._lo:self._hi]
+            with profiling.span("sweep.mask_read"):
+                ni = m.cpu().numpy()
+            if ni.any():
+                profiling.count("init.steps")
+                profiling.count("init.needed", int(ni.sum()))
+            out_t = out_i = None
+            if not ni.all():
+                with profiling.span("sweep.run"):
+                    out_t = self._run(keys_track, depths, prev_t, hand_bases,
+                                      hand_qs, "track")
+            if ni.any():
+                with profiling.span("sweep.run"):
+                    out_i = self._run(keys_init, depths, prev_i, hand_bases,
+                                      hand_qs, "init")
+            with profiling.span("sweep.merge"):
+                merged = self._merge(m, out_t, out_i)
+                if self._group is not None:
+                    merged = self._gather(merged)
+            with profiling.span("sweep.finish"):
+                return self._finish(state, key, need_init, *merged)
 
     # -- checkpoint / resume -------------------------------------------------
 

@@ -24,7 +24,9 @@ On a CUDA device the first call of a key
      the graph. The graphs of one owner share one memory pool, captured on
      one stream (the allocator reuses a block only on the stream that freed
      it): they replay one at a time and their outputs are cloned, so one
-     program's intermediates may take the memory of another's;
+     program's intermediates may take the memory of another's. The graph
+     is kept beside its instance, so that its nodes can be counted
+     (`Program.nodes`);
 
 and every call copies the inputs into the buffers, reseeds the generators
 (`manual_seed`: a fresh Philox stream from offset 0, the draws of an eager
@@ -39,16 +41,23 @@ or copy from the host (a host array becomes a device tensor through
 `constant`). The kernels' launch counters (ops/knn_cuda.py) count wrapper
 calls, and a replay makes none: a program records the launches its capture
 made and adds them on every replay.
+
+With the tracer on (utils/profiling.py) a call is the span `program.call`,
+with `program.capture` (warm-up and capture), `program.inputs`,
+`program.replay` and `program.outputs` inside; it counts
+`program.captures`, `program.replays` and `program.kernels` (kernel nodes
+replayed), reads its last replay's stage times before the next, and a
+capture records the traced function's stage marks into the graph.
 """
 from __future__ import annotations
 
-import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 from ..ops import knn_cuda
-from . import rng
+from . import profiling, rng
 
 _CONSTANTS: dict = {}
 
@@ -74,8 +83,9 @@ def _clone(out):
 
 
 class Program:
-    """One captured program: its graph, input buffers, generators, outputs
-    and the kernel launches of one replay."""
+    """One captured program: its graph, input buffers, generators, outputs,
+    the kernel launches of one replay and, captured with the tracer on, its
+    stage marks (utils/profiling.py)."""
 
     def __init__(self, device: torch.device, n_sources: int, pool=None,
                  stream=None):
@@ -84,49 +94,72 @@ class Program:
         self.gens = [torch.Generator(device=device) for _ in range(n_sources)]
         self.graph = None
         self.replays = 0          # replays run, the capture's first included
-        self.capture_s = 0.0      # warm-up + capture, seconds
         self.launches: dict = {}  # kernel launches of one replay
+        self.marks: list = []     # (stage, event) recorded into the graph
+        self._nodes = None
 
     def _seed(self, seeds) -> None:
         for g, s in zip(self.gens, seeds):
             g.manual_seed(int(s))
 
     def __call__(self, fn, seeds, inputs, static: dict):
-        self._seed(seeds)
-        if self.device.type != "cuda":
-            return fn(rng.Stack(self.gens), *(
-                torch.as_tensor(x, dtype=torch.float32, device=self.device)
-                for x in inputs), **static)
-        if self.graph is None:
-            self._capture(fn, inputs, static)
-            self._seed(seeds)
-        else:
-            for buf, x in zip(self.bufs, inputs):
-                buf.copy_(torch.as_tensor(x))
-        self.graph.replay()
-        knn_cuda.add_launches(self.launches)
-        self.replays += 1
-        return _clone(self.out)
+        with profiling.span("program.call"):
+            if self.device.type != "cuda":
+                self._seed(seeds)
+                return fn(rng.Stack(self.gens), *(
+                    torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                    for x in inputs), **static)
+            tracer = profiling.active()
+            if tracer is not None:
+                tracer.read_replay(self.marks)
+            fresh = self.graph is None
+            if fresh:
+                with profiling.span("program.capture"):
+                    self._seed(seeds)
+                    self._capture(fn, inputs, static)
+            with profiling.span("program.inputs"):
+                if not fresh:
+                    for buf, x in zip(self.bufs, inputs):
+                        buf.copy_(torch.as_tensor(x))
+                self._seed(seeds)
+            with profiling.span("program.replay"):
+                self.graph.replay()
+            knn_cuda.add_launches(self.launches)
+            self.replays += 1
+            with profiling.span("program.outputs"):
+                out = _clone(self.out)
+            if tracer is not None:
+                tracer.replayed(self.marks, self.nodes()["kernel"])
+            return out
 
     def _capture(self, fn, inputs, static: dict) -> None:
-        t0 = time.perf_counter()
         dev = self.device
         self.bufs = [torch.empty(tuple(np.shape(x)), dtype=torch.float32, device=dev)
                      for x in inputs]
         for buf, x in zip(self.bufs, inputs):
             buf.copy_(torch.as_tensor(x))
         self.stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), profiling.quiet():
             fn(rng.Stack(self.gens), *self.bufs, **static)           # warm-up
-        graph = torch.cuda.CUDAGraph()
+        # the graph is kept beside its instance, for `nodes`
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for g in self.gens:
             graph.register_generator_state(g)
         before = knn_cuda.launch_counts()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with profiling.capturing(self.marks), torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream):
             self.out = fn(rng.Stack(self.gens), *self.bufs, **static)
+        graph.instantiate()
         self.launches = knn_cuda.launches_since(before)
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        profiling.count("program.captures")
+
+    def nodes(self) -> Counter:
+        """The captured graph's nodes by type (`kernel`, `event_record`,
+        ...; utils/profiling.graph_nodes), counted once."""
+        if self._nodes is None:
+            self._nodes = profiling.graph_nodes(self.graph.raw_cuda_graph())
+        return self._nodes
 
 
 class Programs:

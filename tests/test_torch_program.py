@@ -6,7 +6,8 @@ sweep) on the CPU, where a program calls its traced function directly:
   static arguments, the mode's scalars and the inputs' shapes;
 - what a capture on the card needs, held here: no host read and no copy
   from the host inside `_frame_step` and the sweep's `_sweep_step`, in both
-  modes, per scene and shared;
+  modes, per scene and shared, with the tracer (utils/profiling.py) off
+  and on (its stage marks inside);
 - `estimate` bitwise `_frame_step` at the same seed, and a result untouched
   by the next call;
 - an int seed draws the stream of `torch.Generator().manual_seed(seed)`
@@ -29,7 +30,7 @@ from icra20_hand_object_pose_tpu_torch.models import (
 from icra20_hand_object_pose_tpu_torch.models.estimator import _generator
 from icra20_hand_object_pose_tpu_torch.ops import knn_cuda
 from icra20_hand_object_pose_tpu_torch.parallel import LibrarySweep
-from icra20_hand_object_pose_tpu_torch.utils import meshio, program, rng
+from icra20_hand_object_pose_tpu_torch.utils import meshio, profiling, program, rng
 from icra20_hand_object_pose_tpu_torch.utils.config import (
     CameraIntrinsics, EstimatorConfig, PsoConfig, TrackerConfig,
 )
@@ -143,6 +144,17 @@ def _no_host_reads(monkeypatch, copies: bool = False):
             yield
 
 
+@contextlib.contextmanager
+def _tracing(on: bool):
+    """The tracer on or off inside the block, reset after."""
+    was = profiling.tracing(on)
+    try:
+        yield
+    finally:
+        profiling.tracing(was)
+        profiling.reset()
+
+
 def _variant(tiny, variant):
     """An estimator of phase 18's programs: the default (K1), fused_gn
     (K3), nn_fn (K2) and pixel-mode scoring."""
@@ -159,11 +171,13 @@ def _variant(tiny, variant):
 @pytest.mark.parametrize("variant", ["default", "fused_gn", "nn_fn", "pixel",
                                      "two_priors"])
 @pytest.mark.parametrize("mode", ["init", "track"])
-def test_frame_step_has_no_host_reads(tiny, monkeypatch, mode, variant):
+@pytest.mark.parametrize("tracing", [False, True], ids=["untraced", "traced"])
+def test_frame_step_has_no_host_reads(tiny, monkeypatch, tracing, mode, variant):
     """`_frame_step` in both modes, through K1's, K3's and K2's plain
     versions, in pixel mode and with two priors, reads nothing on the host
     and copies nothing from it (after one warm call, as a program's warm-up
-    fills its constants)."""
+    fills its constants), with the tracer off and on (its stage marks);
+    traced, it is bitwise the untraced call."""
     est = _variant(tiny, variant)
     depth, prior, hb, hq = _args(tiny["frames"][0], mode)
     if variant == "two_priors":
@@ -171,7 +185,7 @@ def test_frame_step_has_no_host_reads(tiny, monkeypatch, mode, variant):
     dyn, static = est.frame_args(depth, prior, hb, hq, key=3, mode=mode)
     ref = est._frame_step(*dyn, **static)
     dyn = (_generator(3, est.device),) + dyn[1:]
-    with _no_host_reads(monkeypatch, copies=True):
+    with _tracing(tracing), _no_host_reads(monkeypatch, copies=True):
         out = est._frame_step(*dyn, **static)
     for name, a, b in zip(out._fields, out, ref):
         assert torch.equal(a, b), name
@@ -179,10 +193,12 @@ def test_frame_step_has_no_host_reads(tiny, monkeypatch, mode, variant):
 
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("mode", ["init", "track"])
-def test_sweep_has_no_host_reads(tiny, monkeypatch, mode, shared):
+@pytest.mark.parametrize("tracing", [False, True], ids=["untraced", "traced"])
+def test_sweep_has_no_host_reads(tiny, monkeypatch, tracing, mode, shared):
     """`LibrarySweep._run` of two objects in both modes, per scene and on a
     shared scene, reads nothing on the host, and its traced `_sweep_step`
-    copies nothing from it."""
+    copies nothing from it, with the tracer off and on; traced, both are
+    bitwise the untraced call."""
     frames = tiny["frames"]
     sweep = LibrarySweep(tiny["objs"], tiny["hand"], tiny["cfg"], shared_scene=shared)
     if shared:
@@ -192,12 +208,12 @@ def test_sweep_has_no_host_reads(tiny, monkeypatch, mode, shared):
                             for n in ("depth", "hand_base", "hand_q"))
     prev = np.stack([_args(f, mode)[1] for f in frames])
     ref = sweep._run([5, 6], depths, prev, hbs, hqs, mode)
-    with _no_host_reads(monkeypatch):
+    with _tracing(tracing), _no_host_reads(monkeypatch):
         out = sweep._run([5, 6], depths, prev, hbs, hqs, mode)
     inputs = [torch.as_tensor(a, dtype=torch.float32) for a in (depths, prev, hbs, hqs)]
     gens = rng.Stack([_generator(k, sweep.device) for k in (5, 6)])
     static = sweep._statics(mode)
-    with _no_host_reads(monkeypatch, copies=True):
+    with _tracing(tracing), _no_host_reads(monkeypatch, copies=True):
         traced = sweep._sweep_step(gens, *inputs, **static)
     for name, a, b, c in zip(out._fields, out, ref, traced):
         assert torch.equal(a, b) and torch.equal(a, c), name
