@@ -18,7 +18,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: a CUDA device is required (no CPU fallback); prints the card's
      name and power limit as nvidia-smi reports them;
   2. build:  compiles every kernel source (csrc/*.cu: K1 and K2 in
-     nn_gather.cu, K3 in nn_gn.cu, both on the search core nn_search.cuh),
+     nn_gather.cu, K3 in nn_gn.cu, both on the search core nn_search.cuh,
+     K4 in gn_iterate.cu),
      one nvcc per source started together, into one library; prints
      ptxas' register and spill report;
   3. kernels, each against its plain PyTorch version on the card, timed:
@@ -47,6 +48,12 @@ Phases, in order; any failure raises and the script exits non-zero:
        that particle (the two sum in other orders), wsum and hits within
        1e-5 relative, a repeated call bitwise equal, and each object's
        group launched alone bitwise equal to the grouped launch;
+     - K4 (the ICP tail: gates, 3 Gauss-Newton reps, pose updates) at
+       GI_SHAPES (the tracked scan, explorer pulls and polish, the init scan
+       and polish, the sweep's scan with a scene per object and shared, the
+       gates' scenes, ragged cases): poses within 1e-5, frozen equal, rmse,
+       inliers and support within 1e-5 relative, a repeated call bitwise
+       equal, each object alone bitwise the grouped launch;
      timing columns per shape: device ms per launch (20-50 calls captured
      in one CUDA graph, timed with events: the card's time, host excluded),
      the kernels one call launches (torch.profiler, by name), ms per call
@@ -57,7 +64,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      fx=fy=570, box object, T42 hand, 2048 scene / 1024 model / 2048 render
      points, 512 particles x 10 iterations), a splat-rendered frame with
      1 mm noise, a Tracker seeded at the ground truth, 5 calls of
-     Tracker.step: no re-init, finite poses, ADD-S < 5 mm, K1 launched;
+     Tracker.step: no re-init, finite poses, ADD-S < 5 mm, K1 and K4
+     launched;
      then one more frame under torch.profiler (device busy vs idle share,
      and the operators that take the most device time);
   5. cold start: an unseeded Tracker under IcpConfig(fused_gn=True) on the
@@ -240,9 +248,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      one and six event-record nodes (its five stages' marks), the untraced
      graphs none; one more replay of each
      program under torch.profiler (after (d)'s timings: a profiler session
-     slows every later replay's issue), whose K1, K2 and K3 kernels counted by
+     slows every later replay's issue), whose K1-K4 kernels counted by
      name must equal the launches the program recorded at its capture; K1,
-     K2 and K3 each launched in a replay (replays alone counted, warm-ups
+     K2, K3 and K4 each launched in a replay (replays alone counted, warm-ups
      and eager frames left out); (b) a Tracker's frame k result unchanged
      by frame k+1's replay; (c) K3's shared arrival counters grown to 8192
      and the freed memory refilled after a K3 program was captured, then a
@@ -263,9 +271,9 @@ Every phase prints its seconds.
 
 Each path phase sets every launch count to 0 just before it and reads the
 counts just after; the JSON line's `launches` are those of the path that
-carries the kernel (K1: phase 4, K3: phase 5, K2: phase 6), and its
-`library_sweep_launches` those of the library paths (K1: phase 10, K2 and
-K3: their step of phase 12), its `mesh_launches` each kernel's launches
+carries the kernel (K1 and K4: phase 4, K3: phase 5, K2: phase 6), and its
+`library_sweep_launches` those of the library paths (K1 and K4: phase 10,
+K2 and K3: their step of phase 12), its `mesh_launches` each kernel's launches
 in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
 it; K2 and K3 read 0 unless a mesh path launched them), its
 `blind_path_launches` each kernel's launches over phase 15, its
@@ -289,15 +297,22 @@ import sys
 import tempfile
 import time
 
+# the kernels by ID: their wrappers (ops/knn_cuda.py), the TPU kernel each
+# replaces (K4 replaces none: on the TPU the ICP tail is XLA-fused into the
+# frame program) and their sources
+KERNELS = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched",
+           "K4": "gn_iterate_batched"}
 REPLACES = {
     "K1": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:220",
     "K2": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:78",
     "K3": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:412",
+    "K4": None,
 }
 SOURCE = {
     "K1": "icra20_hand_object_pose_tpu_torch/csrc/nn_gather.cu",
     "K2": "icra20_hand_object_pose_tpu_torch/csrc/nn_gather.cu",
     "K3": "icra20_hand_object_pose_tpu_torch/csrc/nn_gn.cu",
+    "K4": "icra20_hand_object_pose_tpu_torch/csrc/gn_iterate.cu",
 }
 # (P, Ns, Nm) that a frame hands K1 (and K2 through nn_fn). Tracked:
 # in-scan ICP and support on the 512 x 256 subsets, the 32 explorer seeds on
@@ -392,6 +407,16 @@ GN_GROUPED = ([(LIB * 512, LIB, 512, 256), (LIB * 32, LIB, 512, 256),
 # than one launch covers at once (each block walks 4 chunks)
 GN_CHECKS = [(32, 1, 512, 256, True), (3, 1, 4096, 256, False),
              (LIB * 32, LIB, 512, 256, True), (6, 2, 4096, 256, True)]
+# K4 (O, P, Ns, Nm): the tracked scan, explorer pulls and polish, the init
+# scan and polish, the sweep's tracked scan (a scene per object) and its
+# shared-scene explorer pulls, the gates' 768- and 1024-point scenes, and
+# ragged cases. Nm only shapes the search that makes the inputs: K4's
+# arithmetic follows Ns alone (its block size), so a path's launch counts
+# as checked where its Ns is one of these
+GI_SHAPES = [(1, 512, 512, 256), (1, 32, 512, 256), (1, 18, 2048, 1024),
+             (1, 1024, 512, 512), (1, 17, 2048, 1024), (LIB, 512, 512, 256),
+             (LIB, 32, 512, 256), (1, 18, 1024, 1024), (1, 18, 768, 256),
+             (3, 5, 777, 100), (2, 3, 37, 73)]
 # the plain versions hold a dense [P, Ns, Nm] distance tensor: above this
 # many pairs they run in slices of the particle axis
 PLAIN_PAIRS = 2 ** 27
@@ -794,6 +819,66 @@ def k3_phase(knn_cuda, dev, grouped: bool = True) -> dict:
                         for (P, G, Ns, Nm), v in res.items()})
 
 
+def gi_bound(O, P, Ns, reps: int = 3) -> tuple[float, str]:
+    """K4: ~100 FP32 operations per pair and rep (J, r, the 28 products and
+    sums, the re-pose); each particle's matched points, normals and d2 (7
+    floats a pair) and its object's scene (7 a point) read once, the pose
+    read and written (32 floats), 4 more floats written a particle."""
+    return bound(100.0 * reps * O * P * Ns, 4.0 * (7 * O * P * Ns + 7 * O * Ns + 36 * O * P))
+
+
+def k4_phase(knn_cuda, dev) -> dict:
+    """K4 against its plain version (`icp.gn_iterate_plain`) at GI_SHAPES,
+    gn_reps 3, support on, with frozen and zero-inlier particles
+    (tests/test_torch_gn_iterate.py's inputs): poses within 1e-5, `frozen`
+    equal, rmse, inliers and support within 1e-5 relative, a repeated call
+    bitwise equal, each object alone bitwise the grouped launch; timed.
+    Returns the tracked scan's numbers, every shape's under "shapes"."""
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.ops import icp
+
+    T = _tests_module("test_torch_gn_iterate")
+    kw = dict(T.GATES, gn_reps=3, support_tau=0.01)
+    max_err, res = 0.0, {}
+    for O, P, Ns, Nm in GI_SHAPES:
+        shared = O == LIB and P == 32
+        args = T._inputs(O, P, Ns, Nm, shared=shared, seed=Ns + P, device=dev)
+        where = f"O={O} P={P} Ns={Ns}{' shared' if shared else ''}"
+        run = lambda: knn_cuda.gn_iterate_batched(*args, **kw)
+        plain = lambda: icp.gn_iterate_plain(*args, **kw)
+        (poses, st), (pp, sp), (p2, s2) = run(), plain(), run()
+        torch.cuda.synchronize()
+        err = (poses - pp).abs().max().item()
+        check(bool(torch.isfinite(poses).all()) and err <= 1e-5,
+              f"K4 poses part from the plain version's at {where}: {err:.3e}")
+        check(torch.equal(st.converged, sp.converged), f"K4 frozen differs at {where}")
+        for name in ("rmse", "inliers", "support"):
+            a, b = getattr(st, name), getattr(sp, name)
+            check(bool(((a - b).abs() <= 1e-5 * b.abs()).all()),
+                  f"K4 {name} disagrees at {where}")
+        check(torch.equal(p2, poses) and all(torch.equal(a, b) for a, b in zip(s2, st)),
+              f"K4 repeated call not bitwise equal at {where}")
+        for o in range(O if O > 1 else 0):
+            one = tuple(a[o:o + 1] if a.shape[0] == O else a for a in args)
+            p1, s1 = knn_cuda.gn_iterate_batched(*one, **kw)
+            check(torch.equal(p1[0], poses[o]) and all(
+                torch.equal(a[0], b[o]) for a, b in zip(s1, st)),
+                f"K4 object {o} alone differs from the grouped launch at {where}")
+        max_err = max(max_err, err)
+        t = timings(run, plain, 50 if O * P * Ns < 1e6 else 20)
+        b_ms, b_by = gi_bound(O, P, Ns)
+        print(f"K4 {where}: device {1e3 * t['ms']:.2f} us/launch "
+              f"({t['kernels_per_call']} kernel(s)/call), call incl. host issue "
+              f"{t['call_ms']:.5f} ms, host {t['host_us']:.1f} us/call, plain "
+              f"{t['plain_ms']:.4f} ms, bound {1e3 * b_ms:.2f} us ({b_by}); max|pose "
+              f"err| {err:.2e}, repeat bitwise{', each object alone bitwise' if O > 1 else ''}",
+              flush=True)
+        res[(O, P, Ns)] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=max_err, **res[(1, 512, 512)],
+                shapes={f"O={O} P={P} Ns={Ns}": v for (O, P, Ns), v in res.items()})
+
+
 def sweep_phase(knn_cuda, dev) -> None:
     """Device ms per launch (a CUDA graph of 20 calls) of the launch plans
     within the kernels' limits, at each main-path shape
@@ -896,23 +981,20 @@ def timed_step(tracker, fr, pose_gt, dense, label: str, profiled: bool = False):
 
 
 def reset_counts(knn_cuda) -> None:
-    for fn in (knn_cuda.nn_gather_batched, knn_cuda.nn_batched,
-               knn_cuda.nn_gn_batched):
+    for name in KERNELS.values():
+        fn = getattr(knn_cuda, name)
         fn.launches = 0
         fn.shapes.clear()
 
 
 def counts(knn_cuda) -> dict:
-    return {"K1": knn_cuda.nn_gather_batched.launches,
-            "K2": knn_cuda.nn_batched.launches,
-            "K3": knn_cuda.nn_gn_batched.launches}
+    return {k: getattr(knn_cuda, name).launches for k, name in KERNELS.items()}
 
 
 def launched(knn_cuda) -> dict:
-    """Each kernel's launches by (P, B, Ns, Nm) since the last reset."""
-    return {"K1": dict(knn_cuda.nn_gather_batched.shapes),
-            "K2": dict(knn_cuda.nn_batched.shapes),
-            "K3": dict(knn_cuda.nn_gn_batched.shapes)}
+    """Each kernel's launches by (P, B, Ns, Nm) (K4: (P, O, Ns)) since the
+    last reset."""
+    return {k: dict(getattr(knn_cuda, name).shapes) for k, name in KERNELS.items()}
 
 
 def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
@@ -921,22 +1003,26 @@ def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
     kernel phases held against the plain version (K1/K2: NN_SHAPES at B = 1
     and B = P, NN_GROUPED, SHARD_SHAPES and GATE_SHAPES; K3: GN_SHAPES at
     B = 1, and
-    GN_GROUPED); prints the launches by shape."""
+    GN_GROUPED; K4: an Ns of GI_SHAPES); prints the launches by shape."""
     seen = launched(knn_cuda) if seen is None else seen
     print(f"{path} launches by (P, blocks, Ns, Nm): "
           f"{ {k: v for k, v in seen.items() if v} }", flush=True)
     nn_ok = ({(P, B, Ns, Nm) for P, Ns, Nm in NN_SHAPES for B in (1, P)}
              | set(NN_GROUPED) | set(SHARD_SHAPES) | set(GATE_SHAPES))
     gn_ok = {(P, 1, Ns, Nm) for P, Ns, Nm in GN_SHAPES} | set(GN_GROUPED)
+    gi_ns = {Ns for _, _, Ns, _ in GI_SHAPES}
     for k, shapes in seen.items():
-        unchecked = set(shapes) - (gn_ok if k == "K3" else nn_ok)
+        if k == "K4":
+            unchecked = {sh for sh in shapes if sh[2] not in gi_ns}
+        else:
+            unchecked = set(shapes) - (gn_ok if k == "K3" else nn_ok)
         check(not unchecked, f"{path} launched {k} at {sorted(unchecked)}, "
               f"where no kernel phase checks it against its plain version")
 
 
-def track_phase(sc: Scene, knn_cuda) -> tuple[int, dict]:
+def track_phase(sc: Scene, knn_cuda) -> tuple[dict, dict]:
     """Five tracked frames of the benchmark configuration from the ground
-    truth, then one profiled frame; returns the K1 launches of the five and
+    truth, then one profiled frame; returns the launches of the five and
     the single frame's numbers (ms/frame, and the profiled frame's wall and
     device ms and ATen calls) for the library phase to stand beside."""
     from icra20_hand_object_pose_tpu_torch.models import Estimator, Tracker
@@ -952,13 +1038,13 @@ def track_phase(sc: Scene, knn_cuda) -> tuple[int, dict]:
         check(not res.reinitialized, f"frame {i} re-initialized")
         check(adds < 5.0, f"frame {i}: ADD-S {adds:.3f} mm >= 5 mm")
     n = counts(knn_cuda)
-    check(n["K1"] > 0, "the tracked frames never launched K1")
+    check(n["K1"] > 0 and n["K4"] > 0, f"the tracked frames launched {n}")
     steady = sum(frame_ms[1:]) / len(frame_ms[1:])
     print(f"Tracker.step: {steady:.2f} ms/frame (frames 1-4; frame 0 "
           f"{frame_ms[0]:.2f} ms), launches in 5 frames {n}", flush=True)
     sc.step(tracker, "profiled track frame", profiled=True)
     check_shapes(knn_cuda, "track path")
-    return n["K1"], dict(timed_step.last_profile, frame_ms=steady)
+    return n, dict(timed_step.last_profile, frame_ms=steady)
 
 
 def timed_call(fn, dev, profiled: bool = False):
@@ -1419,8 +1505,7 @@ def check_grouped(knn_cuda, kernel: str, path: str, n: int = LIB) -> None:
     """Every launch of `kernel` since the last reset took one query (scene)
     block per object or one for all: `n` (the library's objects) or 1
     blocks, never one launch per object."""
-    shapes = {"K1": knn_cuda.nn_gather_batched, "K2": knn_cuda.nn_batched,
-              "K3": knn_cuda.nn_gn_batched}[kernel].shapes
+    shapes = getattr(knn_cuda, KERNELS[kernel]).shapes
     check(bool(shapes), f"{path} never launched {kernel}")
     bad = [s for s in shapes if s[0] % n or s[1] not in (1, n)]
     check(not bad, f"{path} launched {kernel} per object, not per library: {bad}")
@@ -1507,7 +1592,7 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
           f"profiled step's wall time, {100.0 * prep_ops / prof['aten_calls']:.1f}% "
           f"of its ATen calls", flush=True)
     check_shapes(knn_cuda, "library path")
-    return dict(lib=lib, launches=n["K1"], steps=results[:2], step_ms=step_ms,
+    return dict(lib=lib, launches=n, steps=results[:2], step_ms=step_ms,
                 state=st)
 
 
@@ -1812,7 +1897,7 @@ def mesh_ranks_phase(sc: Scene, lb: dict, knn_cuda, single: dict | None,
     adds = [1000.0 * evaluation.add_s_error(a["poses"][o], sc.pose_gt, lib.dense[o])
             for o in range(LIB)]
     check(max(adds) < 5.0, f"{tag}: the (1, 2) mesh's ADD-S {adds} >= 5 mm")
-    total = {"K1": 0, "K2": 0, "K3": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for r, out in got.items():
         for case in ("frame", "sweep", "sweep_2d"):
             seen = out[case]["launches"]
@@ -1904,7 +1989,7 @@ def blind_init_case(lib, sc: Scene, knn_cuda) -> dict:
 
     fused = dataclasses.replace(sc.cfg, icp=dataclasses.replace(sc.cfg.icp, fused_gn=True))
     thr = sc.cfg.tracker.fitness_reinit_threshold
-    total = {"K1": 0, "K2": 0, "K3": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for kernel, sweep in (("K2", lib.sweep(nn_fn=knn_cuda.make_nn_fn())),
                           ("K3", lib.sweep(cfg=fused))):
         reset_counts(knn_cuda)
@@ -1984,7 +2069,7 @@ def blind_single_case(lib, sc: Scene, knn_cuda, variants) -> dict:
     from icra20_hand_object_pose_tpu_torch import evaluation
     from icra20_hand_object_pose_tpu_torch.models import Estimator
 
-    total = {"K1": 0, "K2": 0, "K3": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for name, cfg, kw in variants:
         sweep = lib.sweep(cfg=cfg, **kw)
         _, keys_t, _, prev_t, _, _ = sweep._prep(lib.seeded(sweep))
@@ -2862,11 +2947,12 @@ KERNEL_NAMES = (
     (re.compile(r"\bnn_kernel<[^>]*\bfalse>|_Z\d+nn_kernelI(?:Li\d+E)+Lb0E"),
      "nn_batched"),
     (re.compile(r"\bnn_gn_kernel<|_Z\d+nn_gn_kernelI"), "nn_gn_batched"),
+    (re.compile(r"\bgn_iterate_kernel<|\d+gn_iterate_kernelI"), "gn_iterate_batched"),
 )
 
 
 def traced_kernels(call) -> dict:
-    """K1, K2 and K3's kernels that one `call` ran on the card, by wrapper
+    """K1-K4's kernels that one `call` ran on the card, by wrapper
     name, counted by kernel name in a torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
@@ -2887,7 +2973,7 @@ def traced_kernels(call) -> dict:
 
 def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
     """Phase 18 (a): one more call of the case's program, a replay, under
-    torch.profiler; K1-K3 counted by name in its trace must equal the
+    torch.profiler; K1-K4 counted by name in its trace must equal the
     launches the program recorded at its capture. The profiler now and then
     loses events, so a trace that counts fewer is taken again, up to
     `tries` times; one that counts more fails at once."""
@@ -2909,11 +2995,11 @@ def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
 
 
 def replay_launches(owners) -> dict:
-    """K1, K2 and K3's launches in the replays of `owners`' programs alone
+    """K1-K4's launches in the replays of `owners`' programs alone
     (no warm-up, no eager frame): each program's replays times the
     launches recorded at its capture."""
-    n = {"K1": 0, "K2": 0, "K3": 0}
-    names = {"nn_gather_batched": "K1", "nn_batched": "K2", "nn_gn_batched": "K3"}
+    n = dict.fromkeys(KERNELS, 0)
+    names = {name: k for k, name in KERNELS.items()}
     for owner in owners:
         for prog in owner._programs.programs.values():
             for name, (k, _) in prog.launches.items():
@@ -3008,7 +3094,10 @@ def main(argv: list[str]) -> int:
     grouped = "--ungrouped" not in argv
     stats = {"K1": run_phase("3 K1", nn_phase, knn_cuda, dev, True, grouped),
              "K2": run_phase("3 K2", nn_phase, knn_cuda, dev, False, grouped),
-             "K3": run_phase("3 K3", k3_phase, knn_cuda, dev, grouped)}
+             "K3": run_phase("3 K3", k3_phase, knn_cuda, dev, grouped),
+             # a checkout from before K4 (scripts/kernel_ab.sh) has no K4
+             "K4": (run_phase("3 K4", k4_phase, knn_cuda, dev)
+                    if hasattr(knn_cuda, KERNELS["K4"]) else None)}
     if "--kernels-only" in argv:
         print(smi, flush=True)
         return 0
@@ -3028,8 +3117,8 @@ def main(argv: list[str]) -> int:
         run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
         print(smi, flush=True)
         return 0
-    k1, single = run_phase("4 track", track_phase, sc, knn_cuda)
-    launches = {"K1": k1,
+    track_n, single = run_phase("4 track", track_phase, sc, knn_cuda)
+    launches = {"K1": track_n["K1"], "K4": track_n["K4"],
                 "K3": run_phase("5 cold start", cold_start_phase, sc, knn_cuda),
                 "K2": run_phase("6 nn_fn", nn_fn_phase, sc, knn_cuda)}
     with tempfile.TemporaryDirectory() as work:
@@ -3040,7 +3129,7 @@ def main(argv: list[str]) -> int:
         run_phase("11 shared scene", shared_phase, sc, knn_cuda, dev)
         lib_launches = dict(run_phase("12 library kernels", library_kernels_phase,
                                       lb, sc, knn_cuda, dev, work),
-                            K1=lb["launches"])
+                            K1=lb["launches"]["K1"], K4=lb["launches"]["K4"])
         run_phase("13 bench", bench_phase, knn_cuda, dev, single)
         mesh_launches = run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, single)
         blind_launches = run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
@@ -3049,10 +3138,9 @@ def main(argv: list[str]) -> int:
     program_launches = run_phase("18 compiled programs", programs_phase, sc, knn_cuda,
                                  dev, smi)
 
-    names = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched"}
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
-        "name": names[k], "route": "cuda", "source": SOURCE[k],
+        "name": KERNELS[k], "route": "cuda", "source": SOURCE[k],
         "replaces": REPLACES[k], "launches": launches[k],
         "library_sweep_launches": lib_launches[k],
         "mesh_launches": mesh_launches[k],
@@ -3060,7 +3148,7 @@ def main(argv: list[str]) -> int:
         "gate_launches": gate_launches[k],
         "program_launches": program_launches[k],
         **stats[k], "library_ms": None,
-    } for k in ("K1", "K2", "K3")]}), flush=True)
+    } for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -8,7 +8,9 @@ and converged particles freeze, as in the reference. Correspondences come
 from `corr_fn` (kernel K1, ops/knn_cuda.make_corr_fn), from `nn_fn` (kernel
 K2, make_nn_fn) followed by an indexed gather, or from the dense oracle;
 `gn_fn` (kernel K3, make_gn_fn) fuses the search with the gates and the
-normal-equation build.
+normal-equation build. Everything between one search and the next (the
+gates, the `gn_reps` solves, the pose updates) is `gn_iterate_plain`, which
+kernel K4 (ops/knn_cuda.gn_iterate_batched) runs in one launch on the card.
 """
 from __future__ import annotations
 
@@ -118,6 +120,58 @@ def solve_gn_step(
     return xi, rmse
 
 
+def gn_iterate_plain(
+    poses: torch.Tensor,          # [O,P,4,4]
+    frozen: torch.Tensor,         # [O,P] bool
+    matched: torch.Tensor,        # [O,P,Ns,3] matched model points (camera)
+    mnorm: torch.Tensor,          # [O,P,Ns,3] their normals
+    d2: torch.Tensor,             # [O,P,Ns] squared match distances
+    scene_c: torch.Tensor,        # [O,Ns,3] scene points less the anchor
+    scene_normals: torch.Tensor,  # [1|O,Ns,3]
+    scene_weights: torch.Tensor,  # [O,Ns]
+    anchor: torch.Tensor,         # [O,3] weighted scene centroid
+    wsum: torch.Tensor,           # [O] clamped scene weight sum
+    *,
+    max_corresp_dist: float,
+    min_cos: float,
+    damping: float,
+    step_scale: float,
+    converge_tol: float,
+    gn_reps: int,
+    support_tau: float,
+) -> tuple[torch.Tensor, IcpStats]:
+    """What one ICP iteration does after its correspondence search: the
+    gates, then `gn_reps` damped Gauss-Newton solves on the matched pairs,
+    each re-posed by the increment before the next. Returns (poses, stats),
+    `stats.converged` the updated freeze. The plain version of kernel K4
+    (ops/knn_cuda.gn_iterate_batched), which runs it in one launch."""
+    w = correspondence_weights(
+        d2, scene_normals[:, None], mnorm, scene_weights[:, None],
+        max_corresp_dist, min_cos,
+    )                                                         # [O,P,Ns]
+    m_c = matched - anchor[:, None, None]
+    nrm = mnorm
+    rmse = None
+    for rep in range(gn_reps):
+        xi, rmse = solve_gn_step(scene_c[:, None], m_c, nrm, w, damping)
+        xi = xi * step_scale
+        step = torch.sum(xi * xi, dim=-1)
+        frozen = frozen | (step < converge_tol * converge_tol)
+        xi = torch.where(frozen[..., None], 0.0, xi)
+        poses = se3.apply_twist_about(xi, poses, anchor[:, None])
+        if rep + 1 < gn_reps:
+            E = se3.se3_exp(xi)
+            m_c = se3.transform_points(E, m_c)
+            nrm = se3.rotate_vectors(E, nrm)
+    if support_tau <= 0:
+        support = torch.zeros(d2.shape[:-1], dtype=d2.dtype, device=d2.device)
+    else:
+        hit = (d2 < support_tau * support_tau).to(d2.dtype)
+        support = torch.sum(hit * scene_weights[:, None], dim=-1) / wsum[:, None]
+    return poses, IcpStats(rmse=rmse, inliers=torch.sum(w, dim=-1),
+                           converged=frozen, support=support)
+
+
 def _lift(poses: torch.Tensor, *tensors: torch.Tensor):
     """The single-object arguments of icp_batched / scene_support with a
     leading object axis of length 1: (lifted?, poses, tensors...)."""
@@ -220,40 +274,24 @@ def _icp_objects(poses0, scene_pts, scene_normals, scene_weights, model_pts,
                           step_scale=step_scale, converge_tol=converge_tol,
                           gn_reps=gn_reps, gn_fn=gn_fn, support_tau=support_tau)
 
-    def _support(d2):
-        if support_tau <= 0:
-            return torch.zeros(d2.shape[:-1], dtype=d2.dtype, device=d2.device)
-        hit = (d2 < support_tau * support_tau).to(d2.dtype)
-        return torch.sum(hit * scene_weights[:, None], dim=-1) / wsum[:, None]
+    # the Gauss-Newton tail of each iteration: kernel K4 on the card, the
+    # plain version on the CPU (imported here: ops/knn_cuda.py imports this
+    # module)
+    from .knn_cuda import gn_iterate_batched
 
     poses = poses0
     frozen = torch.zeros(poses0.shape[:2], dtype=torch.bool, device=poses0.device)
-    rmse = inliers = support = None
+    stats = IcpStats(rmse=None, inliers=None, converged=frozen, support=None)
     for _ in range(iters):
         posed = se3.transform_points(poses, model_pts[:, None])   # [O,P,Nm,3]
         mnorm_all = se3.rotate_vectors(poses, model_normals[:, None])
         matched, mnorm, d2 = _search(scene_pts, posed, mnorm_all, nn_fn, corr_fn)
-        w = correspondence_weights(
-            d2, scene_normals[:, None], mnorm, scene_weights[:, None],
-            max_corresp_dist, min_cos,
-        )                                                         # [O,P,Ns]
-        m_c = matched - anchor[:, None, None]
-        nrm = mnorm
-        for rep in range(gn_reps):
-            xi, rmse = solve_gn_step(scene_c[:, None], m_c, nrm, w, damping)
-            xi = xi * step_scale
-            step = torch.sum(xi * xi, dim=-1)
-            frozen = frozen | (step < converge_tol * converge_tol)
-            xi = torch.where(frozen[..., None], 0.0, xi)
-            poses = se3.apply_twist_about(xi, poses, anchor[:, None])
-            if rep + 1 < gn_reps:
-                E = se3.se3_exp(xi)
-                m_c = se3.transform_points(E, m_c)
-                nrm = se3.rotate_vectors(E, nrm)
-        inliers = torch.sum(w, dim=-1)
-        support = _support(d2)
-    return poses, IcpStats(rmse=rmse, inliers=inliers, converged=frozen,
-                           support=support)
+        poses, stats = gn_iterate_batched(
+            poses, stats.converged, matched, mnorm, d2, scene_c, scene_normals,
+            scene_weights, anchor, wsum, max_corresp_dist=max_corresp_dist,
+            min_cos=min_cos, damping=damping, step_scale=step_scale,
+            converge_tol=converge_tol, gn_reps=gn_reps, support_tau=support_tau)
+    return poses, stats
 
 
 def _icp_fused(poses0, scene_c, scene_normals, scene_weights, model_pts,

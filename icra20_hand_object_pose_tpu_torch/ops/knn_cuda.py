@@ -1,4 +1,5 @@
-"""The nearest-neighbour kernels K1, K2 and K3, each beside its plain version.
+"""The nearest-neighbour kernels K1, K2 and K3 and the Gauss-Newton kernel K4,
+each beside its plain version.
 
 Counterparts of `icra20_hand_object_pose_tpu/ops/knn_pallas.py`:
 
@@ -9,15 +10,20 @@ Counterparts of `icra20_hand_object_pose_tpu/ops/knn_pallas.py`:
   - K3 `nn_gn_batched` (`make_gn_fn`): the K1 search of an anchored scene
     against anchored posed model clouds, the correspondence gates of
     `icp.correspondence_weights`, and the point-to-plane normal equations
-    (H, g, sum w, support hits, sum w r^2) per particle.
+    (H, g, sum w, support hits, sum w r^2) per particle;
+  - K4 `gn_iterate_batched`, which replaces no TPU kernel: what an ICP
+    iteration does after its search (`icp.gn_iterate_plain`: the gates, the
+    `gn_reps` damped solves, pose updates and re-posed pairs), one block
+    per particle.
 
 Two versions of each function live here:
 
   - `nn_gather_plain`, `nn_plain`, `nn_gn_plain`: plain PyTorch, built on a
-    dense [P,Ns,Nm] difference-square distance tensor and `argmin`. The CPU
-    path, and the reference each CUDA kernel is held against on the card.
+    dense [P,Ns,Nm] difference-square distance tensor and `argmin`; and
+    `icp.gn_iterate_plain`. The CPU path, and the reference each CUDA kernel
+    is held against on the card.
   - the CUDA kernels in `csrc/` (`nn_gather.cu` holds K1 and K2, `nn_gn.cu`
-    K3), built with nvcc for sm_90a into one library in the package's
+    K3, `gn_iterate.cu` K4), built with nvcc for sm_90a into one library in the package's
     `build/` directory at first use and bound with ctypes. They keep the
     distance matrix out of device memory (see the source notes).
 
@@ -30,7 +36,7 @@ each, searched in one launch (parallel/sharding.py).
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
 other. `<wrapper>.launches` counts kernel launches and `<wrapper>.shapes`
-counts them by (P, B, Ns, Nm). A launch recorded into a CUDA graph is
+counts them by (P, B, Ns, Nm) (K4: by (P, O, Ns)). A launch recorded into a CUDA graph is
 counted when the graph replays (utils/program.py: `launch_counts`,
 `launches_since` and `add_launches`).
 """
@@ -260,16 +266,18 @@ def build() -> tuple[ctypes.CDLL, str]:
     lib.nn_gather_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
     lib.nn_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.nn_gn_launch.argtypes = [ptr] * 12 + [i32] * 7 + [f32] * 3 + [ptr]
-    for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch):
+    lib.gn_iterate_launch.argtypes = [ptr] * 15 + [i32] * 5 + [f32] * 6 + [ptr]
+    for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch,
+               lib.gn_iterate_launch):
         fn.restype = i32
     return lib, log
 
 
 @functools.cache
 def _entry_points() -> tuple:
-    """The C entry points (K1, K2, K3), bound once."""
+    """The C entry points (K1, K2, K3, K4), bound once."""
     lib, _ = build()
-    return lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch
+    return lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch, lib.gn_iterate_launch
 
 
 def _check(device: torch.device, *specs) -> None:
@@ -477,11 +485,89 @@ nn_gn_batched.launches = 0
 nn_gn_batched.shapes = collections.Counter()
 
 
-_COUNTED = (nn_gather_batched, nn_batched, nn_gn_batched)
+def gn_iterate_batched(
+    poses: torch.Tensor,          # [O,P,4,4]
+    frozen: torch.Tensor,         # [O,P] bool
+    matched: torch.Tensor,        # [O,P,Ns,3]
+    mnorm: torch.Tensor,          # [O,P,Ns,3]
+    d2: torch.Tensor,             # [O,P,Ns]
+    scene_c: torch.Tensor,        # [O,Ns,3] anchored
+    scene_normals: torch.Tensor,  # [G,Ns,3], G a divisor of O (1: shared)
+    scene_w: torch.Tensor,        # [O,Ns]
+    anchor: torch.Tensor,         # [O,3]
+    wsum: torch.Tensor,           # [O]
+    *,
+    max_corresp_dist: float,
+    min_cos: float,
+    damping: float,
+    step_scale: float,
+    converge_tol: float,
+    gn_reps: int,
+    support_tau: float,
+) -> tuple[torch.Tensor, icp.IcpStats]:
+    """K4, an ICP iteration's Gauss-Newton tail after its search: returns
+    (poses [O,P,4,4], IcpStats of [O,P], `converged` the updated freeze).
+    CPU tensors take `icp.gn_iterate_plain`; CUDA tensors launch the kernel
+    once, one block per particle, whose size (and so the order of each
+    particle's sums) follows Ns alone: object o of a library gets the bits
+    of object o alone."""
+    gn = dict(max_corresp_dist=max_corresp_dist, min_cos=min_cos, damping=damping,
+              step_scale=step_scale, converge_tol=converge_tol, gn_reps=gn_reps,
+              support_tau=support_tau)
+    O, P = poses.shape[:2]
+    Ns = d2.shape[-1]
+    device = poses.device
+    if not _route("K4", device, O=O, P=P, Ns=Ns):
+        return icp.gn_iterate_plain(poses, frozen, matched, mnorm, d2, scene_c,
+                                    scene_normals, scene_w, anchor, wsum, **gn)
+    if gn_reps < 1:
+        raise ValueError(f"K4 runs at least one Gauss-Newton rep, not {gn_reps}")
+    G = scene_normals.shape[0]
+    if O % G:
+        raise ValueError(f"scene normal blocks {G} do not divide the objects {O}")
+    f32 = torch.float32
+    poses, frozen, matched, mnorm, d2, scene_c, scene_normals, scene_w, anchor, wsum = (
+        t.contiguous() for t in (poses, frozen, matched, mnorm, d2, scene_c,
+                                 scene_normals, scene_w, anchor, wsum))
+    _check(device, ("poses", poses, (O, P, 4, 4), f32),
+           ("frozen", frozen, (O, P), torch.bool),
+           ("matched", matched, (O, P, Ns, 3), f32),
+           ("mnorm", mnorm, (O, P, Ns, 3), f32),
+           ("d2", d2, (O, P, Ns), f32),
+           ("scene_c", scene_c, (O, Ns, 3), f32),
+           ("scene_normals", scene_normals, (G, Ns, 3), f32),
+           ("scene_w", scene_w, (O, Ns), f32),
+           ("anchor", anchor, (O, 3), f32),
+           ("wsum", wsum, (O,), f32))
+    poses_out = torch.empty_like(poses)
+    frozen_out = torch.empty_like(frozen)
+    rmse, inliers, support = (torch.empty((O, P), dtype=f32, device=device)
+                              for _ in range(3))
+    tau2 = support_tau * support_tau if support_tau > 0 else 0.0
+    _launch("gn_iterate", device, _entry_points()[3],
+            poses.data_ptr(), frozen.data_ptr(), matched.data_ptr(), mnorm.data_ptr(),
+            d2.data_ptr(), scene_c.data_ptr(), scene_normals.data_ptr(),
+            scene_w.data_ptr(), anchor.data_ptr(), wsum.data_ptr(),
+            poses_out.data_ptr(), frozen_out.data_ptr(), rmse.data_ptr(),
+            inliers.data_ptr(), support.data_ptr(), O, P, G, Ns, gn_reps,
+            float(max_corresp_dist * max_corresp_dist), float(min_cos),
+            float(damping), float(step_scale), float(converge_tol * converge_tol),
+            float(tau2))
+    gn_iterate_batched.launches += 1
+    gn_iterate_batched.shapes[(O * P, O, Ns)] += 1
+    return poses_out, icp.IcpStats(rmse=rmse, inliers=inliers, converged=frozen_out,
+                                   support=support)
+
+
+gn_iterate_batched.launches = 0
+gn_iterate_batched.shapes = collections.Counter()
+
+
+_COUNTED = (nn_gather_batched, nn_batched, nn_gn_batched, gn_iterate_batched)
 
 
 def launch_counts() -> dict:
-    """Each wrapper's (launches, shapes) as they stand: K1, K2, K3 by name."""
+    """Each wrapper's (launches, shapes) as they stand: K1-K4 by name."""
     return {fn.__name__: (fn.launches, collections.Counter(fn.shapes))
             for fn in _COUNTED}
 
