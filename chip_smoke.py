@@ -11,6 +11,8 @@
     python3 chip_smoke.py --bench-only     # build + kernel phases + phase 13, then
                                            # scripts/profile_phases_torch.py
     python3 chip_smoke.py --programs-only  # build + phase 18
+    python3 chip_smoke.py --pixel-only     # build + K5's phase, phase 15's
+                                           # pixel-mode case and phase 18
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -19,7 +21,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      name and power limit as nvidia-smi reports them;
   2. build:  compiles every kernel source (csrc/*.cu: K1 and K2 in
      nn_gather.cu, K3 in nn_gn.cu, both on the search core nn_search.cuh,
-     K4 in gn_iterate.cu),
+     K4 in gn_iterate.cu, K5 in splat_compare.cu),
      one nvcc per source started together, into one library; prints
      ptxas' register and spill report;
   3. kernels, each against its plain PyTorch version on the card, timed:
@@ -54,6 +56,18 @@ Phases, in order; any failure raises and the script exits non-zero:
        gates' scenes, ragged cases): poses within 1e-5, frozen equal, rmse,
        inliers and support within 1e-5 relative, a repeated call bitwise
        equal, each object alone bitwise the grouped launch;
+     - K5 (render-and-compare scoring) on the served frames of a
+       track.t42_box_vga_pixel run (portbench's inputs from the seed, the
+       cell's configuration): frame 0's init and frames 1-2 tracked,
+       eagerly, every K5 call recorded, the first at each (P, Nr, H, W)
+       held against the ATen pair (`splat_compare_plain`) and against
+       portbench/reference/pixel.py in blocks of particles: the counted
+       pixels and the coverage exact, the support within 1e-5 of
+       max(support, 1), the fitness within 1e-5; a repeated call bitwise
+       equal; then the tracked scan's and the finisher's calls as a sweep
+       of LIB objects (each its particles in another order and its images
+       shifted by o pixels), against the ATen pair object by object, each
+       object launched alone bitwise the library's launch;
      timing columns per shape: device ms per launch (20-50 calls captured
      in one CUDA graph, timed with events: the card's time, host excluded),
      the kernels one call launches (torch.profiler, by name), ms per call
@@ -101,8 +115,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      watchdog re-initialises with the default configuration,
      under torch.profiler;
   9. pixel mode: 3 frames of the sequence tracked from the ground truth
-     under ScoreConfig(mode="pixel"): no re-init, ADD-S < 5 mm; then one
-     more frame under torch.profiler;
+     under ScoreConfig(mode="pixel"): no re-init, ADD-S < 5 mm, K5
+     launched; then one more frame under torch.profiler;
   10. library, per scene (BASELINE config 5 at its `--sweep-scale` size: 8
      objects, box / cylinder / sphere / ellipsoid twice, ObjectModel(mesh,
      seed=i), config 3's camera and sizes, one splat-rendered frame per
@@ -248,10 +262,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      one and six event-record nodes (its five stages' marks), the untraced
      graphs none; one more replay of each
      program under torch.profiler (after (d)'s timings: a profiler session
-     slows every later replay's issue), whose K1-K4 kernels counted by
+     slows every later replay's issue), whose K1-K5 kernels counted by
      name must equal the launches the program recorded at its capture; K1,
-     K2, K3 and K4 each launched in a replay (replays alone counted, warm-ups
-     and eager frames left out); (b) a Tracker's frame k result unchanged
+     K2, K3, K4 and K5 each launched in a replay (replays alone counted,
+     warm-ups and eager frames left out); (b) a Tracker's frame k result unchanged
      by frame k+1's replay; (c) K3's shared arrival counters grown to 8192
      and the freed memory refilled after a K3 program was captured, then a
      fused_gn sweep init program (8 x 1024) captured, and the K3 program
@@ -271,10 +285,10 @@ Every phase prints its seconds.
 
 Each path phase sets every launch count to 0 just before it and reads the
 counts just after; the JSON line's `launches` are those of the path that
-carries the kernel (K1 and K4: phase 4, K3: phase 5, K2: phase 6), and its
-`library_sweep_launches` those of the library paths (K1 and K4: phase 10,
-K2 and K3: their step of phase 12), its `mesh_launches` each kernel's launches
-in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
+carries the kernel (K1 and K4: phase 4, K3: phase 5, K2: phase 6, K5:
+phase 9), and its `library_sweep_launches` those of the library paths (K1
+and K4: phase 10, K2 and K3: their step of phase 12), its `mesh_launches`
+each kernel's launches in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
 it; K2 and K3 read 0 unless a mesh path launched them), its
 `blind_path_launches` each kernel's launches over phase 15, its
 `gate_launches` those over phase 17 ((a)-(d)), its `program_launches`
@@ -296,23 +310,26 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 # the kernels by ID: their wrappers (ops/knn_cuda.py), the TPU kernel each
-# replaces (K4 replaces none: on the TPU the ICP tail is XLA-fused into the
-# frame program) and their sources
+# replaces (K4 and K5 replace none: on the TPU the ICP tail and the pixel
+# scorer are XLA inside the frame program) and their sources
 KERNELS = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched",
-           "K4": "gn_iterate_batched"}
+           "K4": "gn_iterate_batched", "K5": "splat_compare_batched"}
 REPLACES = {
     "K1": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:220",
     "K2": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:78",
     "K3": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:412",
     "K4": None,
+    "K5": None,
 }
 SOURCE = {
     "K1": "icra20_hand_object_pose_tpu_torch/csrc/nn_gather.cu",
     "K2": "icra20_hand_object_pose_tpu_torch/csrc/nn_gather.cu",
     "K3": "icra20_hand_object_pose_tpu_torch/csrc/nn_gn.cu",
     "K4": "icra20_hand_object_pose_tpu_torch/csrc/gn_iterate.cu",
+    "K5": "icra20_hand_object_pose_tpu_torch/csrc/splat_compare.cu",
 }
 # (P, Ns, Nm) that a frame hands K1 (and K2 through nn_fn). Tracked:
 # in-scan ICP and support on the 512 x 256 subsets, the 32 explorer seeds on
@@ -417,6 +434,20 @@ GI_SHAPES = [(1, 512, 512, 256), (1, 32, 512, 256), (1, 18, 2048, 1024),
              (1, 1024, 512, 512), (1, 17, 2048, 1024), (LIB, 512, 512, 256),
              (LIB, 32, 512, 256), (1, 18, 1024, 1024), (1, 18, 768, 256),
              (3, 5, 777, 100), (2, 3, 37, 73)]
+# K5: the cell whose served frames its phase scores, the (Nr, H, W) of its
+# calls there (the coarse tier's 512 samples at 120 x 160, the full tier's
+# 2048 at VGA: a path's launches count as checked where their (Nr, H, W) is
+# one of these, since a block's arithmetic follows those alone), the
+# reference's z-buffer bytes at a time, and the tolerances (the support's
+# relative to max(support, 1); tests/test_torch_pixel_reference.py says why)
+PIXEL_CELL = "track.t42_box_vga_pixel"
+K5_SHAPES = {(512, 120, 160), (2048, 480, 640)}
+# (P, Nr, H, W) of the calls the K5 phase runs as a sweep of LIB objects: the
+# tracked scan's and the finisher's
+K5_SWEEP = ((512, 512, 120, 160), (512, 2048, 480, 640))
+K5_REF_BYTES = 1 << 28
+K5_SUPPORT_TOL = 1e-5
+K5_FITNESS_TOL = 1e-5
 # the plain versions hold a dense [P, Ns, Nm] distance tensor: above this
 # many pairs they run in slices of the particle axis
 PLAIN_PAIRS = 2 ** 27
@@ -879,6 +910,155 @@ def k4_phase(knn_cuda, dev) -> dict:
                 shapes={f"O={O} P={P} Ns={Ns}": v for (O, P, Ns), v in res.items()})
 
 
+def sc_bound(P, Nr, H, W) -> tuple[float, str]:
+    """K5: 13 FP32 operations a sample (the projection, its rounding and
+    range tests, the z-buffer's minimum); the samples (3 floats) and one row
+    of weights read once, 4 floats a particle written. The images are left
+    out: a particle reads the pixels of its footprint alone."""
+    return bound(13.0 * P * Nr, 4.0 * (3 * P * Nr + Nr + 4 * P))
+
+
+def _k5_calls(knn_cuda, dev, seed: int) -> dict:
+    """The K5 calls of a track.t42_box_vga_pixel run's first frames, served
+    eagerly: frame 0's init, frames 1-2 tracked from the pose before. The
+    first call at each (P, Nr, H, W): its arguments, cloned."""
+    import math
+
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.ops import pso
+    from portbench import generator, harness, loops
+
+    _, config, mix = harness.load_cell(PIXEL_CELL)
+    traffic = generator.make(config, mix, seed, dev)
+    est = loops.estimator(config, traffic, dev)
+    calls, real = {}, knn_cuda.splat_compare_batched
+
+    def record(pts_cam, weights, *images, **kw):
+        key = (math.prod(pts_cam.shape[:-2]), pts_cam.shape[-2], kw["height"], kw["width"])
+        if key not in calls:
+            calls[key] = (pts_cam.clone(), weights.clone(),
+                          tuple(None if t is None else t.clone() for t in images), kw)
+        return real(pts_cam, weights, *images, **kw)
+
+    pose = traffic.pose_gt[0, 0]
+    # the scorer's calls go through pso's name for the kernels' module
+    pso.knn_cuda = types.SimpleNamespace(splat_compare_batched=record)
+    try:
+        for i in range(3):
+            k = traffic.index(i)
+            out = est.estimate(traffic.depth[k, 0], pose, traffic.hand_base[k, 0],
+                               traffic.hand_q, key=torch.Generator(dev).manual_seed(seed + i),
+                               mode="init" if i == 0 else "track")
+            pose = out.pose
+    finally:
+        pso.knn_cuda = knn_cuda
+    return calls
+
+
+def _k5_agree(terms, ref: dict, where: str) -> tuple[float, float]:
+    """K5's terms against `ref`'s (a dict of fitness, coverage, support and
+    counted): counts and coverage exact, sums within K5_*_TOL. Returns the
+    largest support and fitness differences."""
+    import torch
+
+    check(torch.equal(terms.counted, ref["counted"].to(torch.float32)),
+          f"K5's counted pixels part from {where}")
+    check(torch.equal(terms.coverage, ref["coverage"]), f"K5's coverage parts from {where}")
+    d_sup = (terms.support - ref["support"]).abs()
+    d_fit = (terms.fitness - ref["fitness"]).abs()
+    check(bool((d_sup <= K5_SUPPORT_TOL * ref["support"].abs().clamp(min=1.0)).all()),
+          f"K5's support parts from {where}: {d_sup.max().item():.3e}")
+    check(bool((d_fit <= K5_FITNESS_TOL).all()),
+          f"K5's fitness parts from {where}: {d_fit.max().item():.3e}")
+    return d_sup.max().item(), d_fit.max().item()
+
+
+def _k5_reference(pts_cam, weights, images, kw) -> dict:
+    """portbench/reference/pixel.py over every object's particles in blocks
+    of K5_REF_BYTES of z-buffers; images [1|O,H,W]."""
+    import torch
+
+    from portbench.reference import pixel
+
+    O, P, Nr = pts_cam.shape[0], pts_cam.shape[1], pts_cam.shape[-2]
+    H, W, r = kw["height"], kw["width"], kw["radius"]
+    block = max(1, K5_REF_BYTES // (4 * (H + 2 * r) * (W + 2 * r)))
+    w = weights.expand(O, P, Nr)
+    gates = {k: kw[k] for k in ("fx", "fy", "cx", "cy", "radius", "depth_tau",
+                                "wrong_side_penalty", "occlusion_margin",
+                                "invalid_penalty")}
+    per = []
+    for o in range(O):
+        img = [None if t is None else t[min(o, t.shape[0] - 1)] for t in images]
+        per.append(pixel.score_in_blocks(pts_cam[o], w[o], *img, block=block, **gates))
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def k5_phase(knn_cuda, dev) -> dict:
+    """K5 on the served frames of the pixel cell (module docstring): each
+    recorded call against the ATen pair and the plain reference, repeated
+    bitwise, timed; K5_SWEEP's calls as a sweep of LIB objects, each object
+    alone bitwise the library's launch. Returns the finisher's numbers,
+    every shape's under "shapes"."""
+    import torch
+
+    calls = _k5_calls(knn_cuda, dev, seed=2147483747)
+    seen = {key[1:] for key in calls}
+    check(seen == K5_SHAPES, f"K5's calls in the cell hold (Nr, H, W) {sorted(seen)}, "
+          f"not {sorted(K5_SHAPES)}")
+    res, max_err = {}, [0.0, 0.0]
+    for key, (pts, w, images, kw) in sorted(calls.items()):
+        P, Nr, H, W = key
+        where = f"P={P} Nr={Nr} {W}x{H}"
+        run = lambda: knn_cuda.splat_compare_batched(pts, w, *images, **kw)
+        plain = lambda: knn_cuda.splat_compare_plain(pts, w, *images, **kw)
+        terms, again, aten = run(), run(), plain()
+        check(all(torch.equal(a, b) for a, b in zip(terms, again)),
+              f"K5 repeated call not bitwise equal at {where}")
+        e_aten = _k5_agree(terms, aten._asdict(), f"the ATen pair at {where}")
+        t0 = time.perf_counter()
+        e_ref = _k5_agree(terms, _k5_reference(pts, w, images, kw), f"the reference at {where}")
+        ref_s = time.perf_counter() - t0
+        max_err = [max(a, b, c) for a, b, c in zip(max_err, e_aten, e_ref)]
+        t = timings(run, plain, 20)
+        b_ms, b_by = sc_bound(P, Nr, H, W)
+        print(f"K5 {where}: device {1e3 * t['ms']:.2f} us/launch "
+              f"({t['kernels_per_call']} kernel(s)/call), call incl. host issue "
+              f"{t['call_ms']:.5f} ms, host {t['host_us']:.1f} us/call, ATen pair "
+              f"{t['plain_ms']:.4f} ms, bound {1e3 * b_ms:.2f} us ({b_by}); counts "
+              f"exact, |d support| {e_aten[0]:.2e} / {e_ref[0]:.2e}, |d fitness| "
+              f"{e_aten[1]:.2e} / {e_ref[1]:.2e} (ATen pair / reference, {ref_s:.1f} s); "
+              f"{int((terms.counted > 0).sum())} of {P} particles render; repeat bitwise",
+              flush=True)
+        res[key] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    # the sweep: LIB objects, each the call's particles in another order and
+    # its images shifted by o pixels
+    for key in K5_SWEEP:
+        check(key in calls, f"the cell made no K5 call at {key}")
+        pts, w, images, kw = calls[key]
+        lib_pts = torch.cat([torch.roll(pts, 7 * o, dims=1) for o in range(LIB)])
+        lib_img = [None if t is None else
+                   torch.cat([torch.roll(t, o, dims=-1) for o in range(LIB)])
+                   for t in images]
+        lib_w = w.expand(LIB, *w.shape[1:])
+        terms = knn_cuda.splat_compare_batched(lib_pts, lib_w, *lib_img, **kw)
+        for o in range(LIB):
+            one = [None if t is None else t[o:o + 1] for t in lib_img]
+            alone = knn_cuda.splat_compare_batched(lib_pts[o:o + 1], w, *one, **kw)
+            check(all(torch.equal(a[0], b[o]) for a, b in zip(alone, terms)),
+                  f"K5 object {o} alone differs from the library's launch at {key}")
+            aten = knn_cuda.splat_compare_plain(lib_pts[o:o + 1], w, *one, **kw)
+            _k5_agree(type(terms)(*(t[o:o + 1] for t in terms)), aten._asdict(),
+                      f"the ATen pair, object {o} of a sweep of {LIB} at {key}")
+        ms = graph_ms(lambda: knn_cuda.splat_compare_batched(lib_pts, lib_w, *lib_img, **kw), 5)
+        print(f"K5 a sweep of {LIB} x {key[0]} at {key[3]}x{key[2]}: device {1e3 * ms:.2f} "
+              f"us/launch; each object alone bitwise, counts exact against the ATen pair",
+              flush=True)
+    return dict(max_abs_err=max_err[1], max_support_err=max_err[0], **res[K5_SWEEP[1]],
+                shapes={f"P={P} Nr={Nr} {W}x{H}": v for (P, Nr, H, W), v in res.items()})
+
+
 def sweep_phase(knn_cuda, dev) -> None:
     """Device ms per launch (a CUDA graph of 20 calls) of the launch plans
     within the kernels' limits, at each main-path shape
@@ -992,8 +1172,8 @@ def counts(knn_cuda) -> dict:
 
 
 def launched(knn_cuda) -> dict:
-    """Each kernel's launches by (P, B, Ns, Nm) (K4: (P, O, Ns)) since the
-    last reset."""
+    """Each kernel's launches by (P, B, Ns, Nm) (K4: (P, O, Ns); K5: (P, Nr,
+    H, W)) since the last reset."""
     return {k: dict(getattr(knn_cuda, name).shapes) for k, name in KERNELS.items()}
 
 
@@ -1003,7 +1183,8 @@ def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
     kernel phases held against the plain version (K1/K2: NN_SHAPES at B = 1
     and B = P, NN_GROUPED, SHARD_SHAPES and GATE_SHAPES; K3: GN_SHAPES at
     B = 1, and
-    GN_GROUPED; K4: an Ns of GI_SHAPES); prints the launches by shape."""
+    GN_GROUPED; K4: an Ns of GI_SHAPES; K5: an (Nr, H, W) of K5_SHAPES);
+    prints the launches by shape."""
     seen = launched(knn_cuda) if seen is None else seen
     print(f"{path} launches by (P, blocks, Ns, Nm): "
           f"{ {k: v for k, v in seen.items() if v} }", flush=True)
@@ -1014,6 +1195,8 @@ def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
     for k, shapes in seen.items():
         if k == "K4":
             unchecked = {sh for sh in shapes if sh[2] not in gi_ns}
+        elif k == "K5":
+            unchecked = {sh for sh in shapes if sh[1:] not in K5_SHAPES}
         else:
             unchecked = set(shapes) - (gn_ok if k == "K3" else nn_ok)
         check(not unchecked, f"{path} launched {k} at {sorted(unchecked)}, "
@@ -1410,7 +1593,7 @@ def pixel_phase(sq: dict, knn_cuda, dev) -> None:
         check(not out.reinitialized, f"pixel-mode frame {i} re-initialized")
         check(a < 5.0, f"pixel-mode frame {i}: ADD-S {a:.3f} mm >= 5 mm")
     n = counts(knn_cuda)
-    check(n["K1"] > 0, "the pixel-mode frames never launched K1")
+    check(n["K1"] > 0 and n["K5"] > 0, f"the pixel-mode frames launched {n}")
     print(f"pixel mode: {sum(ms[1:]) / 2:.2f} ms/frame (frames 1-2; frame 0 "
           f"{ms[0]:.2f} ms) beside point mode's {sq['track_ms']:.2f} ms/frame; "
           f"ADD-S mm {[round(a, 3) for a in adds]}; peak device memory "
@@ -1419,6 +1602,7 @@ def pixel_phase(sq: dict, knn_cuda, dev) -> None:
     timed_step(tracker, seq[3], seq[3].pose_gt, sq["dense"],
                "profiled pixel-mode frame", profiled=True)
     check_shapes(knn_cuda, "pixel-mode path")
+    return n
 
 
 class Library:
@@ -2948,11 +3132,12 @@ KERNEL_NAMES = (
      "nn_batched"),
     (re.compile(r"\bnn_gn_kernel<|_Z\d+nn_gn_kernelI"), "nn_gn_batched"),
     (re.compile(r"\bgn_iterate_kernel<|\d+gn_iterate_kernelI"), "gn_iterate_batched"),
+    (re.compile(r"splat_compare_kernel(?:\b|E)"), "splat_compare_batched"),
 )
 
 
 def traced_kernels(call) -> dict:
-    """K1-K4's kernels that one `call` ran on the card, by wrapper
+    """K1-K5's kernels that one `call` ran on the card, by wrapper
     name, counted by kernel name in a torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
@@ -2973,7 +3158,7 @@ def traced_kernels(call) -> dict:
 
 def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
     """Phase 18 (a): one more call of the case's program, a replay, under
-    torch.profiler; K1-K4 counted by name in its trace must equal the
+    torch.profiler; K1-K5 counted by name in its trace must equal the
     launches the program recorded at its capture. The profiler now and then
     loses events, so a trace that counts fewer is taken again, up to
     `tries` times; one that counts more fails at once."""
@@ -2995,7 +3180,7 @@ def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
 
 
 def replay_launches(owners) -> dict:
-    """K1-K4's launches in the replays of `owners`' programs alone
+    """K1-K5's launches in the replays of `owners`' programs alone
     (no warm-up, no eager frame): each program's replays times the
     launches recorded at its capture."""
     n = dict.fromkeys(KERNELS, 0)
@@ -3091,13 +3276,24 @@ def main(argv: list[str]) -> int:
         run_phase("18 compiled programs", programs_phase, Scene(dev), knn_cuda, dev, smi)
         print(smi, flush=True)
         return 0
+    if "--pixel-only" in argv:
+        run_phase("3 K5", k5_phase, knn_cuda, dev)
+        sc = Scene(dev)
+        run_phase("15 pixel mode", blind_pixel_case, Library(sc, dev, LIB_MESHES, n=2),
+                  sc, knn_cuda)
+        run_phase("18 compiled programs", programs_phase, sc, knn_cuda, dev, smi)
+        print(smi, flush=True)
+        return 0
     grouped = "--ungrouped" not in argv
     stats = {"K1": run_phase("3 K1", nn_phase, knn_cuda, dev, True, grouped),
              "K2": run_phase("3 K2", nn_phase, knn_cuda, dev, False, grouped),
              "K3": run_phase("3 K3", k3_phase, knn_cuda, dev, grouped),
              # a checkout from before K4 (scripts/kernel_ab.sh) has no K4
              "K4": (run_phase("3 K4", k4_phase, knn_cuda, dev)
-                    if hasattr(knn_cuda, KERNELS["K4"]) else None)}
+                    if hasattr(knn_cuda, KERNELS["K4"]) else None),
+             # and one from before K5
+             "K5": (run_phase("3 K5", k5_phase, knn_cuda, dev)
+                    if hasattr(knn_cuda, KERNELS["K5"]) else None)}
     if "--kernels-only" in argv:
         print(smi, flush=True)
         return 0
@@ -3124,12 +3320,13 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as work:
         sq = run_phase("7 sequence", sequence_phase, knn_cuda, dev, work)
         run_phase("8 checkpoint", checkpoint_phase, sq, knn_cuda, dev, work)
-        run_phase("9 pixel mode", pixel_phase, sq, knn_cuda, dev)
+        launches["K5"] = run_phase("9 pixel mode", pixel_phase, sq, knn_cuda, dev)["K5"]
         lb = run_phase("10 library", library_phase, sc, knn_cuda, dev, single)
         run_phase("11 shared scene", shared_phase, sc, knn_cuda, dev)
         lib_launches = dict(run_phase("12 library kernels", library_kernels_phase,
                                       lb, sc, knn_cuda, dev, work),
-                            K1=lb["launches"]["K1"], K4=lb["launches"]["K4"])
+                            K1=lb["launches"]["K1"], K4=lb["launches"]["K4"],
+                            K5=lb["launches"]["K5"])
         run_phase("13 bench", bench_phase, knn_cuda, dev, single)
         mesh_launches = run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, single)
         blind_launches = run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)

@@ -1,5 +1,5 @@
-"""The nearest-neighbour kernels K1, K2 and K3 and the Gauss-Newton kernel K4,
-each beside its plain version.
+"""The nearest-neighbour kernels K1, K2 and K3, the Gauss-Newton kernel K4 and
+the render-and-compare kernel K5, each beside its plain version.
 
 Counterparts of `icra20_hand_object_pose_tpu/ops/knn_pallas.py`:
 
@@ -14,18 +14,24 @@ Counterparts of `icra20_hand_object_pose_tpu/ops/knn_pallas.py`:
   - K4 `gn_iterate_batched`, which replaces no TPU kernel: what an ICP
     iteration does after its search (`icp.gn_iterate_plain`: the gates, the
     `gn_reps` damped solves, pose updates and re-posed pairs), one block
-    per particle.
+    per particle;
+  - K5 `splat_compare_batched`, which replaces no TPU kernel either: the
+    pixel-mode scorer (`ScoreConfig(mode="pixel")`), each particle's samples
+    splatted into a z-buffer, min-filtered and compared with the observed
+    depth pixel by pixel, one block per particle, without a [P,H,W] image.
 
 Two versions of each function live here:
 
   - `nn_gather_plain`, `nn_plain`, `nn_gn_plain`: plain PyTorch, built on a
-    dense [P,Ns,Nm] difference-square distance tensor and `argmin`; and
-    `icp.gn_iterate_plain`. The CPU path, and the reference each CUDA kernel
-    is held against on the card.
+    dense [P,Ns,Nm] difference-square distance tensor and `argmin`;
+    `icp.gn_iterate_plain`; and `splat_compare_plain`, the ATen pair
+    `render.splat_depth_batched` + `score.compare_depth`. The CPU path, and
+    the reference each CUDA kernel is held against on the card.
   - the CUDA kernels in `csrc/` (`nn_gather.cu` holds K1 and K2, `nn_gn.cu`
-    K3, `gn_iterate.cu` K4), built with nvcc for sm_90a into one library in the package's
-    `build/` directory at first use and bound with ctypes. They keep the
-    distance matrix out of device memory (see the source notes).
+    K3, `gn_iterate.cu` K4, `splat_compare.cu` K5), built with nvcc for
+    sm_90a into one library in the package's `build/` directory at first
+    use and bound with ctypes. They keep the distance matrix (K5: the
+    rendered images) out of device memory (see the source notes).
 
 The query of K1/K2 and the scene of K3 come in B blocks, B any divisor of
 the particle count P: particle p takes block p // (P // B). B = 1 is one
@@ -36,9 +42,9 @@ each, searched in one launch (parallel/sharding.py).
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
 other. `<wrapper>.launches` counts kernel launches and `<wrapper>.shapes`
-counts them by (P, B, Ns, Nm) (K4: by (P, O, Ns)). A launch recorded into a CUDA graph is
-counted when the graph replays (utils/program.py: `launch_counts`,
-`launches_since` and `add_launches`).
+counts them by (P, B, Ns, Nm) (K4: by (P, O, Ns); K5: by (P, Nr, H, W)). A
+launch recorded into a CUDA graph is counted when the graph replays
+(utils/program.py: `launch_counts`, `launches_since` and `add_launches`).
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import icp
+from . import icp, render, score
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -267,17 +273,19 @@ def build() -> tuple[ctypes.CDLL, str]:
     lib.nn_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.nn_gn_launch.argtypes = [ptr] * 12 + [i32] * 7 + [f32] * 3 + [ptr]
     lib.gn_iterate_launch.argtypes = [ptr] * 15 + [i32] * 5 + [f32] * 6 + [ptr]
+    lib.splat_compare_launch.argtypes = [ptr] * 11 + [i32] * 8 + [f32] * 8 + [ptr]
     for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch,
-               lib.gn_iterate_launch):
+               lib.gn_iterate_launch, lib.splat_compare_launch):
         fn.restype = i32
     return lib, log
 
 
 @functools.cache
 def _entry_points() -> tuple:
-    """The C entry points (K1, K2, K3, K4), bound once."""
+    """The C entry points (K1, K2, K3, K4, K5), bound once."""
     lib, _ = build()
-    return lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch, lib.gn_iterate_launch
+    return (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch, lib.gn_iterate_launch,
+            lib.splat_compare_launch)
 
 
 def _check(device: torch.device, *specs) -> None:
@@ -563,11 +571,149 @@ gn_iterate_batched.launches = 0
 gn_iterate_batched.shapes = collections.Counter()
 
 
-_COUNTED = (nn_gather_batched, nn_batched, nn_gn_batched, gn_iterate_batched)
+# the splat's largest radius (csrc/splat_compare.cu's kMaxRadius)
+MAX_SPLAT_RADIUS = 16
+
+
+def splat_compare_plain(
+    pts_cam: torch.Tensor,         # [..., Nr, 3] camera-frame samples
+    weights: torch.Tensor,         # broadcast to [..., Nr]; 0 disables a sample
+    observed: torch.Tensor,        # [H,W], or [1|O,H,W] with [O,P] leading axes
+    observed_valid: torch.Tensor,  # as observed, bool
+    observed_enc: torch.Tensor | None,  # score.encode_observed's, as observed
+    hand_depth: torch.Tensor | None,    # as observed, +inf where no hand
+    *,
+    fx: float, fy: float, cx: float, cy: float,
+    height: int, width: int,
+    radius: int,
+    **gates,
+) -> score.ScoreTerms:
+    """Plain PyTorch K5: one `render.splat_depth_batched` image [..., H, W]
+    per particle, then `score.compare_depth` (`gates`: its depth_tau,
+    wrong_side_penalty, occlusion_margin, invalid_penalty and
+    ghost_dilate)."""
+    lead, Nr = tuple(pts_cam.shape[:-2]), pts_cam.shape[-2]
+    depths = render.splat_depth_batched(
+        pts_cam.reshape(-1, Nr, 3), weights.expand(lead + (Nr,)).reshape(-1, Nr),
+        fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width, radius=radius,
+    ).reshape(lead + (height, width))
+    return score.compare_depth(depths, observed, observed_valid, hand_depth,
+                               observed_enc=observed_enc, **gates)
+
+
+def _image_blocks(img: torch.Tensor, lead: tuple, rows: int) -> tuple[torch.Tensor, int]:
+    """An image argument of K5 as [B,H,W] contiguous and the particles per
+    block: [H,W] or [1,H,W] is one for all, [O,H,W] one per object of [O,P]
+    leading axes."""
+    img = img if img.dim() == 3 else img[None]
+    B = img.shape[0]
+    if B != 1 and (len(lead) != 2 or lead[0] != B):
+        raise ValueError(f"{B} images do not match particles of shape {lead}")
+    return img.contiguous(), rows // B
+
+
+def _weight_rows(weights: torch.Tensor, lead: tuple, Nr: int) -> tuple[torch.Tensor, int]:
+    """K5's weights as [B,Nr] float32 and the particles per row: B is the
+    product of the leading axes the weights vary along, before the trailing
+    ones they broadcast over ([Nr]: one row for all; [O,1,Nr] with [O,P]
+    particles: one per object); any other broadcast is expanded."""
+    shape = (1,) * (len(lead) + 1 - weights.dim()) + tuple(weights.shape[:-1])
+    k = len(shape)
+    while k and shape[k - 1] == 1:
+        k -= 1
+    rows = math.prod(lead)
+    if shape[:k] == lead[:k]:
+        B = math.prod(lead[:k])
+        w = weights.reshape(B, Nr)
+    else:
+        B, w = rows, weights.expand(lead + (Nr,)).reshape(rows, Nr)
+    return w.to(torch.float32).contiguous(), rows // B
+
+
+def splat_compare_batched(
+    pts_cam: torch.Tensor,         # [..., Nr, 3] float32 camera-frame samples
+    weights: torch.Tensor,         # broadcast to [..., Nr]; 0 disables a sample
+    observed: torch.Tensor,        # [H,W], or [1|O,H,W] with [O,P] leading axes
+    observed_valid: torch.Tensor,  # as observed, bool
+    observed_enc: torch.Tensor | None,  # score.encode_observed's (None: made here)
+    hand_depth: torch.Tensor | None,    # as observed, +inf where no hand
+    *,
+    fx: float, fy: float, cx: float, cy: float,
+    height: int, width: int,
+    radius: int,
+    depth_tau: float,
+    wrong_side_penalty: float,
+    occlusion_margin: float,
+    invalid_penalty: float,
+    ghost_dilate: int,
+) -> score.ScoreTerms:
+    """K5, render-and-compare scoring: each particle's samples splatted into
+    a z-buffer of radius `radius`, min-filtered and compared with the
+    observation pixel by pixel. Returns `score.ScoreTerms` over the leading
+    axes (fitness before any coverage weight, coverage, support, counted
+    pixels), as `splat_compare_plain` does. With [O,P] leading axes and
+    [O,H,W] images, object o's particles read image o. CPU tensors take
+    `splat_compare_plain`; CUDA tensors launch the kernel once, one block
+    per particle: a particle's result depends on its own inputs and the
+    shapes alone, so object o of a library gets the bits of object o
+    alone."""
+    gates = dict(depth_tau=depth_tau, wrong_side_penalty=wrong_side_penalty,
+                 occlusion_margin=occlusion_margin, invalid_penalty=invalid_penalty,
+                 ghost_dilate=ghost_dilate)
+    lead, Nr = tuple(pts_cam.shape[:-2]), pts_cam.shape[-2]
+    rows = math.prod(lead)
+    device = pts_cam.device
+    if not _route("K5", device, P=rows, Nr=Nr, H=height, W=width):
+        return splat_compare_plain(pts_cam, weights, observed, observed_valid,
+                                   observed_enc, hand_depth, fx=fx, fy=fy, cx=cx, cy=cy,
+                                   height=height, width=width, radius=radius, **gates)
+    if not 0 <= radius <= MAX_SPLAT_RADIUS:
+        raise ValueError(f"K5 splats a radius of 0 to {MAX_SPLAT_RADIUS}, not {radius}")
+    if observed_enc is None:
+        observed_enc = score.encode_observed(observed, observed_valid, ghost_dilate)
+    obs, img_div = _image_blocks(observed, lead, rows)
+    valid, _ = _image_blocks(observed_valid, lead, rows)
+    enc, _ = _image_blocks(observed_enc, lead, rows)
+    hand, hand_div = (_image_blocks(hand_depth, lead, rows) if hand_depth is not None
+                      else (None, rows))
+    w, w_div = _weight_rows(weights, lead, Nr)
+    pts = pts_cam.reshape(rows, Nr, 3).contiguous()
+    B, HW = obs.shape[0], (height, width)
+    f32 = torch.float32
+    _check(device, ("pts_cam", pts, (rows, Nr, 3), f32),
+           ("weights", w, (rows // w_div, Nr), f32),
+           ("observed", obs, (B,) + HW, f32),
+           ("observed_valid", valid, (B,) + HW, torch.bool),
+           ("observed_enc", enc, (B,) + HW, f32),
+           *([("hand_depth", hand, (rows // hand_div,) + HW, f32)] if hand is not None
+             else []))
+    n_obs = valid.reshape(B, -1).sum(1, dtype=torch.int32)
+    fitness, coverage, support, counted = (torch.empty((rows,), dtype=f32, device=device)
+                                           for _ in range(4))
+    _launch("splat_compare", device, _entry_points()[4],
+            pts.data_ptr(), w.data_ptr(), obs.data_ptr(), valid.data_ptr(),
+            enc.data_ptr(), hand.data_ptr() if hand is not None else None,
+            n_obs.data_ptr(), fitness.data_ptr(), coverage.data_ptr(),
+            support.data_ptr(), counted.data_ptr(), rows, Nr, height, width, radius,
+            w_div, img_div, hand_div, float(fx), float(fy), float(cx), float(cy),
+            float(depth_tau), float(wrong_side_penalty), float(invalid_penalty),
+            float(occlusion_margin))
+    splat_compare_batched.launches += 1
+    splat_compare_batched.shapes[(rows, Nr, height, width)] += 1
+    return score.ScoreTerms(*(t.reshape(lead) for t in (fitness, coverage, support,
+                                                          counted)))
+
+
+splat_compare_batched.launches = 0
+splat_compare_batched.shapes = collections.Counter()
+
+
+_COUNTED = (nn_gather_batched, nn_batched, nn_gn_batched, gn_iterate_batched,
+            splat_compare_batched)
 
 
 def launch_counts() -> dict:
-    """Each wrapper's (launches, shapes) as they stand: K1-K4 by name."""
+    """Each wrapper's (launches, shapes) as they stand: K1-K5 by name."""
     return {fn.__name__: (fn.launches, collections.Counter(fn.shapes))
             for fn in _COUNTED}
 

@@ -9,7 +9,8 @@ pulls, axial slides, the full-cloud ICP polish, fine-tier scoring and the
 score-only finisher. Every perturbation draws from `gen` (a
 torch.Generator or injected draws). With `gn_fn` (kernel K3) the in-scan
 refine and the explorer pulls run the fused search + normal-equation
-path; the polish keeps `corr_fn`/`nn_fn`.
+path; the polish keeps `corr_fn`/`nn_fn`. Pixel-mode scoring
+(`score_particles`) runs kernel K5 on the card.
 
 A library of O objects is searched as one program (parallel/sharding.py):
 `pso` takes its arguments with a leading object axis (the swarms
@@ -37,7 +38,7 @@ from ..parallel.mesh import all_gather
 from ..utils import profiling, se3
 from ..utils.config import IcpConfig, PsoConfig, ScoreConfig
 from . import icp as icp_mod
-from . import render, score
+from . import knn_cuda, score
 
 
 class PsoResult(NamedTuple):
@@ -100,11 +101,14 @@ def score_particles(
     observed_enc: torch.Tensor | None = None,
     mxu_tables: tuple | None = None,
     sample_mask: torch.Tensor | None = None,
+    tier: str = "coarse",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render-and-compare fitness for every particle: (fitness [P],
     coverage [P]). mode="point" (the default): projective per-sample
-    association, no per-particle z-buffer. mode="pixel": one batched splat
-    render [P,h,w] and a per-pixel compare (exact z-buffered semantics).
+    association, no per-particle z-buffer. mode="pixel": a splat render of
+    each particle and a per-pixel compare (exact z-buffered semantics;
+    `knn_cuda.splat_compare_batched`), counted by `tier` ("coarse" or
+    "full") in the tracer's `score.renders.<tier>`.
     For a library every output is [O,P] and sample_mask [O,Nr]."""
     library = poses.dim() == 4
     if library:       # each object's samples beside its particle axis
@@ -132,23 +136,20 @@ def score_particles(
             render_w = render_w * sample_mask
         if library:
             render_w = render_w[:, None]
-        # one render per particle (of every object): [..., P] folded to one axis
-        lead, Nr = tuple(pts_cam.shape[:-2]), pts_cam.shape[-2]
-        depths = render.splat_depth_batched(
-            pts_cam.reshape(-1, Nr, 3),
-            render_w.expand(lead + (Nr,)).reshape(-1, Nr),
-            fx=fx, fy=fy, cx=cx, cy=cy,
-            height=height, width=width, radius=splat_radius,
-        ).reshape(lead + (height, width))                   # [P,h,w] / [O,P,h,w]
-        terms = score.compare_depth(
-            depths, observed_depth, observed_valid, hand_depth,
+        # one z-buffered render per particle (of every object): kernel K5
+        # on the card, the splat and the per-pixel compare on the CPU
+        terms = knn_cuda.splat_compare_batched(
+            pts_cam, render_w, observed_depth, observed_valid, observed_enc,
+            hand_depth,
+            fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
+            radius=splat_radius,
             depth_tau=score_cfg.depth_tau,
             wrong_side_penalty=score_cfg.wrong_side_penalty,
             occlusion_margin=score_cfg.occlusion_margin,
             invalid_penalty=score_cfg.invalid_penalty,
             ghost_dilate=score_cfg.ghost_dilate,
-            observed_enc=observed_enc,
         )
+        profiling.count(f"score.renders.{tier}", terms.fitness.numel())
     return terms.fitness + score_cfg.coverage_weight * terms.coverage, terms.coverage
 
 
@@ -289,6 +290,7 @@ def pso(
             subpixel=score_cfg.subpixel,
             observed_enc=enc_hi,
             sample_mask=render_vis,
+            tier="full",
         )
     else:
         score_fn_hi = score_fn

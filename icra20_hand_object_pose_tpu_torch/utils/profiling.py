@@ -22,7 +22,12 @@
         of the graph, and each replay's stage times are read before the
         program's next replay or at `snapshot`. A warm-up marks nothing;
         an eager call marks events on the card, the host clock on the CPU;
-      * counters (`count`), and on the card each program call's device
+      * counters (`count`). One counted inside a traced function (the
+        pixel-mode scorer's `score.renders.coarse` and `.full`, particle
+        renders by scoring tier) is recorded by a capture, which runs
+        nothing (`counted_since`), and counted once per replay
+        (`add_counts`), as the kernels' launch counters are; and on the
+        card each program call's device
         interval (timing events around its input copies, replay and output
         clones), put on the host clock by an anchor event at `reset`: the
         card's idle gaps named by the host span the card went idle in, and
@@ -190,6 +195,28 @@ def count(name: str, n: int = 1) -> None:
     """Adds `n` to the counter `name`."""
     if _ON:
         TRACER.counters[name] += n
+
+
+def counters() -> Counter:
+    """The counters as they stand (a copy; empty while the tracer is off)."""
+    return Counter(TRACER.counters) if _ON else Counter()
+
+
+def counted_since(before: Counter) -> Counter:
+    """The counts added since `before` (a `counters` result), taken back out
+    of the counters: what a CUDA graph's capture counted, which ran
+    nothing. `add_counts` counts them once per replay."""
+    if not _ON:
+        return Counter()
+    out = TRACER.counters - before
+    TRACER.counters -= out
+    return out
+
+
+def add_counts(recorded: Counter) -> None:
+    """Counts `recorded` (a `counted_since` result) as counted."""
+    if _ON:
+        TRACER.counters.update(recorded)
 
 
 def stage(name: str, device) -> None:
@@ -509,6 +536,9 @@ class Tracer:
           - `<stage>_ms` for each of STAGES (absent if no run was marked);
           - `kernels_per_frame`: kernel nodes replayed (absent without a
             replay);
+          - `coarse_renders_per_frame`, `full_renders_per_frame`: the
+            pixel-mode scorer's particle renders by tier (absent without
+            one);
           - `launch_ms`: host ms in `program.replay` (absent without one);
           - `init_step_share`: % of frames that ran the init program;
           - `wasted_slot_share`: % of the object-slots the programs ran
@@ -535,6 +565,9 @@ class Tracer:
                 per.update({f"{s}_ms": self.stage_ms[s] / f for s in STAGES})
             if "program.kernels" in c:
                 per["kernels_per_frame"] = c["program.kernels"] / f
+            for tier in ("coarse", "full"):
+                if f"score.renders.{tier}" in c:
+                    per[f"{tier}_renders_per_frame"] = c[f"score.renders.{tier}"] / f
             if "program.replay" in spans:
                 per["launch_ms"] = 1e3 * spans["program.replay"]["total_s"] / f
             per["init_step_share"] = 100.0 * c["init.steps"] / f

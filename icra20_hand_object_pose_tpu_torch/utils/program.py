@@ -40,7 +40,8 @@ operator that checks its result on the host, as `torch.linalg.eigh` does)
 or copy from the host (a host array becomes a device tensor through
 `constant`). The kernels' launch counters (ops/knn_cuda.py) count wrapper
 calls, and a replay makes none: a program records the launches its capture
-made and adds them on every replay.
+made and adds them on every replay, and so the tracer's counts made inside
+the traced function (`profiling.counted_since`, `add_counts`).
 
 With the tracer on (utils/profiling.py) a call is the span `program.call`,
 with `program.capture` (warm-up and capture), `program.inputs`,
@@ -95,6 +96,7 @@ class Program:
         self.graph = None
         self.replays = 0          # replays run, the capture's first included
         self.launches: dict = {}  # kernel launches of one replay
+        self.counted = Counter()  # the tracer's counts of one replay
         self.marks: list = []     # (stage, event) recorded into the graph
         self._nodes = None
 
@@ -125,6 +127,7 @@ class Program:
             with profiling.span("program.replay"):
                 self.graph.replay()
             knn_cuda.add_launches(self.launches)
+            profiling.add_counts(self.counted)
             self.replays += 1
             with profiling.span("program.outputs"):
                 out = _clone(self.out)
@@ -146,11 +149,13 @@ class Program:
         for g in self.gens:
             graph.register_generator_state(g)
         before = knn_cuda.launch_counts()
+        counted = profiling.counters()
         with profiling.capturing(self.marks), torch.cuda.graph(
                 graph, pool=self.pool, stream=self.stream):
             self.out = fn(rng.Stack(self.gens), *self.bufs, **static)
         graph.instantiate()
         self.launches = knn_cuda.launches_since(before)
+        self.counted = profiling.counted_since(counted)
         self.graph = graph
         profiling.count("program.captures")
 

@@ -13,7 +13,11 @@ around each program call (`portbench/spans.py`). Prints one JSON line:
 `frame_ms`, `program_ms` (the benchmark's card ms per frame in the program
 calls) and `device_idle_share`, the tracer's per-frame readings
 (`per_frame`: the five stages, `kernels_per_frame`, `launch_ms`,
-`init_step_share`, `wasted_slot_share`, `idle_ms`), the stages' sum over
+`init_step_share`, `wasted_slot_share`, `idle_ms`, and in pixel mode the
+scorer's particle renders by tier, `coarse_renders_per_frame` and
+`full_renders_per_frame`), the kernels' launches in the window per frame
+by wrapper and by shape (`launches`; K5's shape is (P, Nr, H, W)), the
+stages' sum over
 `program_ms`, the idle by span (ms per frame; by the span open when the
 card went idle, and split over the spans the host passed through) against
 `device_idle_share` x `frame_ms`, the counters and the span totals (ms per
@@ -43,6 +47,7 @@ def run_cell(name: str, seed: int, seconds: float, tracing: bool, *,
              tiny: bool = False, device: str = "cuda") -> dict:
     import torch
 
+    from icra20_hand_object_pose_tpu_torch.ops import knn_cuda
     from icra20_hand_object_pose_tpu_torch.utils import profiling
     from portbench import generator, harness, loops
     from portbench.spans import Spans
@@ -69,14 +74,20 @@ def run_cell(name: str, seed: int, seconds: float, tracing: bool, *,
             torch.cuda.synchronize()
         spans.reset()
         profiling.reset()
+        before = knn_cuda.launch_counts()
         w = harness.window(serve, first, seconds, n_obj)
         snap = profiling.snapshot(t_end=profiling.TRACER.t_reset + w["seconds"])
+        after = knn_cuda.launch_counts()
     finally:
         profiling.tracing(was_on)
     frames = len(w["served"])
     frame_ms = 1e3 * w["seconds"] / frames
     out = {"workload": name, "seed": seed, "tracing": tracing, "frames": frames,
-           "frame_ms": frame_ms, "failed": w["failed"]}
+           "frame_ms": frame_ms, "failed": w["failed"],
+           "launches": {k: {"per_frame": (after[k][0] - before[k][0]) / frames,
+                            "shapes": {str(sh): n for sh, n in
+                                       (after[k][1] - before[k][1]).items()}}
+                        for k in after if after[k][0] > before[k][0]}}
     if on_card:
         frame_program_ms = spans.device_ms()
         harness.record_settled(name, frame_program_ms)

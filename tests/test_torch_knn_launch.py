@@ -89,14 +89,15 @@ def test_library_name_hashes_sources_and_headers(tmp_path, name, hashed):
 
 def test_build_compiles_only_cu_files():
     """The header is hashed but compiled only through the sources that
-    include it: the search kernels' (K4, the Gauss-Newton tail, runs no
-    search)."""
+    include it: the search kernels' (K4, the Gauss-Newton tail, and K5, the
+    render-and-compare scorer, run no search)."""
     assert (knn_cuda.CSRC / "nn_search.cuh").exists()
     assert sorted(p.name for p in knn_cuda.CSRC.glob("*.cu")) == [
-        "gn_iterate.cu", "nn_gather.cu", "nn_gn.cu"]
+        "gn_iterate.cu", "nn_gather.cu", "nn_gn.cu", "splat_compare.cu"]
     for name in ("nn_gather.cu", "nn_gn.cu"):
         assert '#include "nn_search.cuh"' in (knn_cuda.CSRC / name).read_text()
-    assert "nn_search.cuh" not in (knn_cuda.CSRC / "gn_iterate.cu").read_text()
+    for name in ("gn_iterate.cu", "splat_compare.cu"):
+        assert "nn_search.cuh" not in (knn_cuda.CSRC / name).read_text()
 
 
 @pytest.mark.parametrize("P,G", [(256, 8), (1024, 32), (16384, 32), (36, 2)])

@@ -8,6 +8,8 @@ traced function directly and the stage marks read the host clock:
 - results bitwise equal with the tracer on and off (`Tracker.step` in both
   modes, `LibrarySweep.step` per scene);
 - a mixed sweep step's counters (objects 1 and 5 re-initialise);
+- pixel-mode scoring's renders by tier (`score.renders.coarse`, `.full`),
+  and a capture's counts taken out and added once per replay;
 - span self times, the innermost open span and the per-frame readings on
   a fake clock;
 - the spans as `record_function` ranges under torch.profiler.
@@ -18,6 +20,8 @@ it on the card) captures a program with the tracer off and on: the same
 kernel nodes, event-record nodes only with it on, the same results, and
 the five stages summing to the CUDA events around a replay.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -31,7 +35,7 @@ from icra20_hand_object_pose_tpu_torch.models import (
 from icra20_hand_object_pose_tpu_torch.parallel import LibrarySweep
 from icra20_hand_object_pose_tpu_torch.utils import meshio, profiling
 from icra20_hand_object_pose_tpu_torch.utils.config import (
-    CameraIntrinsics, EstimatorConfig, PsoConfig, TrackerConfig,
+    CameraIntrinsics, EstimatorConfig, PsoConfig, ScoreConfig, TrackerConfig,
 )
 
 torch.set_num_threads(2)
@@ -286,6 +290,65 @@ def test_spans_are_record_function_ranges(tiny):
     assert {profiling.PREFIX + n for n in ("tracker.step", "tracker.watchdog",
                                            "tracker.priors", "estimate",
                                            "program.call")} <= names
+
+
+def _renders(cfg, mode: str) -> tuple[int, int]:
+    """The particle renders a frame of `mode` scores in pixel mode, (coarse,
+    full): the prescreen (init), the swarm before and after each scan
+    iteration, the explorer seeds' pick (track); the polish's candidates
+    before and after it, and the finisher's batches."""
+    pc, tr = cfg.pso, cfg.tracker
+    P = tr.reinit_particles if mode == "init" else pc.particles
+    iters = 2 * pc.iters if mode == "init" else pc.iters
+    explore = int(round(P * pc.explore_frac)) if mode == "track" else 0
+    coarse = (tr.reinit_prescreen if mode == "init" else 0) + (iters + 1) * P + explore
+    cands = 1 + min(pc.polish_top_k, P - 1) + (1 if explore else 0) + pc.slide_proposals
+    finisher = pc.finish_iters * max(2, min(pc.finish_particles, 4 * P))
+    return coarse, 2 * cands + finisher
+
+
+def test_pixel_mode_counts_renders_by_tier(tiny):
+    """A pixel-mode init frame then a tracked frame count each particle
+    render by tier, and the per-frame readings hold them; point mode
+    counts none (test_init_then_track_spans_stages_counters)."""
+    cfg = dataclasses.replace(tiny["cfg"], score=ScoreConfig(mode="pixel"))
+    fr = tiny["frames"][0]
+    with _Traced():
+        tracker = Tracker(Estimator(tiny["objs"][0], tiny["hand"], cfg), seed=3)
+        res = [tracker.step(fr.depth, fr.hand_base, fr.hand_q) for _ in range(2)]
+        snap = profiling.snapshot()
+    want = [_renders(cfg, "init" if r.reinitialized else "track") for r in res]
+    assert res[0].reinitialized
+    c = snap["counters"]
+    assert c["score.renders.coarse"] == sum(w[0] for w in want)
+    assert c["score.renders.full"] == sum(w[1] for w in want)
+    per = snap["per_frame"]
+    assert per["coarse_renders_per_frame"] == c["score.renders.coarse"] / 2
+    assert per["full_renders_per_frame"] == c["score.renders.full"] / 2
+
+
+def test_capture_counts_once_per_replay():
+    """What a capture counts comes back out of the counters
+    (`counted_since`) and is counted once per replay (`add_counts`); with
+    the tracer off nothing is counted or recorded."""
+    with _Traced() as t:
+        profiling.count("init.steps")
+        before = profiling.counters()
+        profiling.count("score.renders.coarse", 5)            # as a capture counts
+        profiling.count("score.renders.full", 2)
+        rec = profiling.counted_since(before)
+        assert t.counters == before == {"init.steps": 1}
+        assert rec == {"score.renders.coarse": 5, "score.renders.full": 2}
+        for _ in range(3):                                     # three replays
+            profiling.add_counts(rec)
+        assert t.counters == {"init.steps": 1, "score.renders.coarse": 15,
+                              "score.renders.full": 6}
+    with _Traced(False) as t:
+        before = profiling.counters()
+        profiling.count("score.renders.coarse", 5)
+        assert before == {} and profiling.counted_since(before) == {}
+        profiling.add_counts(rec)
+        assert t.counters == {}
 
 
 @pytest.mark.cuda
