@@ -13,6 +13,8 @@
     python3 chip_smoke.py --programs-only  # build + phase 18
     python3 chip_smoke.py --pixel-only     # build + K5's phase, phase 15's
                                            # pixel-mode case and phase 18
+    python3 chip_smoke.py --points-only    # build + K6's phase, phase 15's
+                                           # bitwise library cases and phase 18
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -21,7 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      name and power limit as nvidia-smi reports them;
   2. build:  compiles every kernel source (csrc/*.cu: K1 and K2 in
      nn_gather.cu, K3 in nn_gn.cu, both on the search core nn_search.cuh,
-     K4 in gn_iterate.cu, K5 in splat_compare.cu),
+     K4 in gn_iterate.cu, K5 in splat_compare.cu, K6 in
+     project_compare.cu),
      one nvcc per source started together, into one library; prints
      ptxas' register and spill report;
   3. kernels, each against its plain PyTorch version on the card, timed:
@@ -68,6 +71,16 @@ Phases, in order; any failure raises and the script exits non-zero:
        of LIB objects (each its particles in another order and its images
        shifted by o pixels), against the ATen pair object by object, each
        object launched alone bitwise the library's launch;
+     - K6 (point-mode projective scoring) on the served frames of a
+       track.t42_box_vga run, as K5's phase: frame 0's init and frames 1-2
+       tracked, eagerly, the first call at each (P, N, H, W, rule,
+       subpixel) held against the plain version (`project_compare_plain`:
+       se3's posing and `score.compare_points`): the counted samples and
+       the coverage exact, the support within 1e-5 of max(support, 1), the
+       fitness within 1e-6; a repeated call bitwise equal; timed (the card
+       alone, in a graph) beside its bound and the plain chain in a graph;
+       then the tracked scan's and the finisher's calls as a sweep of LIB
+       objects, each object launched alone bitwise the library's launch;
      timing columns per shape: device ms per launch (20-50 calls captured
      in one CUDA graph, timed with events: the card's time, host excluded),
      the kernels one call launches (torch.profiler, by name), ms per call
@@ -78,7 +91,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      fx=fy=570, box object, T42 hand, 2048 scene / 1024 model / 2048 render
      points, 512 particles x 10 iterations), a splat-rendered frame with
      1 mm noise, a Tracker seeded at the ground truth, 5 calls of
-     Tracker.step: no re-init, finite poses, ADD-S < 5 mm, K1 and K4
+     Tracker.step: no re-init, finite poses, ADD-S < 5 mm, K1, K4 and K6
      launched;
      then one more frame under torch.profiler (device busy vs idle share,
      and the operators that take the most device time);
@@ -116,15 +129,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      under torch.profiler;
   9. pixel mode: 3 frames of the sequence tracked from the ground truth
      under ScoreConfig(mode="pixel"): no re-init, ADD-S < 5 mm, K5
-     launched; then one more frame under torch.profiler;
+     launched and K6 not; then one more frame under torch.profiler;
   10. library, per scene (BASELINE config 5 at its `--sweep-scale` size: 8
      objects, box / cylinder / sphere / ellipsoid twice, ObjectModel(mesh,
      seed=i), config 3's camera and sizes, one splat-rendered frame per
      object): LibrarySweep from init_state(): step 0 re-initialises every
      object, steps 1-3 track (no healthy object re-initialises); every
      object within ADD-S 10% of its diameter on step 0 or 1 and under 5 mm
-     on steps 2-3; K1 alone carries it, every launch with one scene per
-     object (never a launch per object); then one tracked step under
+     on steps 2-3; K1 alone carries the search, every launch with one scene
+     per object (never a launch per object), and K6 scores a whole library
+     a launch; then one tracked step under
      torch.profiler, printed beside phase 4's single frame (ms, ATen
      operator calls, device time), failing unless the step issues under 4x
      the single frame's operator calls; then the per-frame `_scene_prep`
@@ -262,9 +276,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      one and six event-record nodes (its five stages' marks), the untraced
      graphs none; one more replay of each
      program under torch.profiler (after (d)'s timings: a profiler session
-     slows every later replay's issue), whose K1-K5 kernels counted by
+     slows every later replay's issue), whose K1-K6 kernels counted by
      name must equal the launches the program recorded at its capture; K1,
-     K2, K3, K4 and K5 each launched in a replay (replays alone counted,
+     K2, K3, K4, K5 and K6 each launched in a replay (replays alone counted,
      warm-ups and eager frames left out); (b) a Tracker's frame k result unchanged
      by frame k+1's replay; (c) K3's shared arrival counters grown to 8192
      and the freed memory refilled after a K3 program was captured, then a
@@ -285,9 +299,9 @@ Every phase prints its seconds.
 
 Each path phase sets every launch count to 0 just before it and reads the
 counts just after; the JSON line's `launches` are those of the path that
-carries the kernel (K1 and K4: phase 4, K3: phase 5, K2: phase 6, K5:
-phase 9), and its `library_sweep_launches` those of the library paths (K1
-and K4: phase 10, K2 and K3: their step of phase 12), its `mesh_launches`
+carries the kernel (K1, K4 and K6: phase 4, K3: phase 5, K2: phase 6, K5:
+phase 9), and its `library_sweep_launches` those of the library paths (K1,
+K4 and K6: phase 10, K2 and K3: their step of phase 12), its `mesh_launches`
 each kernel's launches in phase 14, summed over (a) and every rank of (b) and (c) (K1 carries
 it; K2 and K3 read 0 unless a mesh path launched them), its
 `blind_path_launches` each kernel's launches over phase 15, its
@@ -313,16 +327,18 @@ import time
 import types
 
 # the kernels by ID: their wrappers (ops/knn_cuda.py), the TPU kernel each
-# replaces (K4 and K5 replace none: on the TPU the ICP tail and the pixel
-# scorer are XLA inside the frame program) and their sources
+# replaces (K4, K5 and K6 replace none: on the TPU the ICP tail and both
+# scorers are XLA inside the frame program) and their sources
 KERNELS = {"K1": "nn_gather_batched", "K2": "nn_batched", "K3": "nn_gn_batched",
-           "K4": "gn_iterate_batched", "K5": "splat_compare_batched"}
+           "K4": "gn_iterate_batched", "K5": "splat_compare_batched",
+           "K6": "project_compare_batched"}
 REPLACES = {
     "K1": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:220",
     "K2": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:78",
     "K3": "icra20_hand_object_pose_tpu/ops/knn_pallas.py:412",
     "K4": None,
     "K5": None,
+    "K6": None,
 }
 SOURCE = {
     "K1": "icra20_hand_object_pose_tpu_torch/csrc/nn_gather.cu",
@@ -330,6 +346,7 @@ SOURCE = {
     "K3": "icra20_hand_object_pose_tpu_torch/csrc/nn_gn.cu",
     "K4": "icra20_hand_object_pose_tpu_torch/csrc/gn_iterate.cu",
     "K5": "icra20_hand_object_pose_tpu_torch/csrc/splat_compare.cu",
+    "K6": "icra20_hand_object_pose_tpu_torch/csrc/project_compare.cu",
 }
 # (P, Ns, Nm) that a frame hands K1 (and K2 through nn_fn). Tracked:
 # in-scan ICP and support on the 512 x 256 subsets, the 32 explorer seeds on
@@ -448,6 +465,19 @@ K5_SWEEP = ((512, 512, 120, 160), (512, 2048, 480, 640))
 K5_REF_BYTES = 1 << 28
 K5_SUPPORT_TOL = 1e-5
 K5_FITNESS_TOL = 1e-5
+# K6: the cell whose served frames its phase scores, the (rule, subpixel)
+# of its calls there (the coarse tier's "mxu" image reads, the prescreen's
+# and the polish's "take" reads, the finisher's "mxu" patches: a path's
+# launches count as checked where theirs is one of these, since the block
+# size follows N alone and the cell's calls hold both sizes), the (P, N, H,
+# W, rule, subpixel) of the calls its phase runs as a sweep of LIB objects
+# (the tracked scan's and the finisher's), and the tolerances
+# (tests/test_torch_project_compare.py says why)
+POINT_CELL = "track.t42_box_vga"
+K6_RULES = {("image", False), ("take", False), ("take", True), ("patch", True)}
+K6_SWEEP = ((512, 512, 120, 160, "image", False), (512, 2048, 480, 640, "patch", True))
+K6_SUPPORT_TOL = 1e-5
+K6_FITNESS_TOL = 1e-6
 # the plain versions hold a dense [P, Ns, Nm] distance tensor: above this
 # many pairs they run in slices of the particle axis
 PLAIN_PAIRS = 2 ** 27
@@ -1059,6 +1089,171 @@ def k5_phase(knn_cuda, dev) -> dict:
                 shapes={f"P={P} Nr={Nr} {W}x{H}": v for (P, Nr, H, W), v in res.items()})
 
 
+def pc_bound(P, N, subpixel: bool) -> tuple[float, str]:
+    """K6: 45 FP32 operations a (particle, sample) pair (posing the sample
+    and its normal, the facing test, the projection and its rounding and
+    range tests, the classification), 20 more for the sub-pixel combine;
+    the object's samples and normals (6 floats) read once, a pose (16) and
+    the 4 scores a particle. The images are left out: a particle reads the
+    pixels its samples land on alone."""
+    return bound((65.0 if subpixel else 45.0) * P * N, 4.0 * (6 * N + 20 * P))
+
+
+def _k6_calls(knn_cuda, dev, seed: int) -> dict:
+    """The K6 calls of a track.t42_box_vga run's first frames, served
+    eagerly: frame 0's init, frames 1-2 tracked from the pose before. The
+    first call at each (P, N, H, W, rule, subpixel): its arguments, cloned."""
+    import math
+
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.ops import pso
+    from portbench import generator, harness, loops
+
+    _, config, mix = harness.load_cell(POINT_CELL)
+    traffic = generator.make(config, mix, seed, dev)
+    est = loops.estimator(config, traffic, dev)
+    calls, real = {}, knn_cuda.project_compare_batched
+
+    def copy(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        return tuple(copy(t) for t in v) if isinstance(v, tuple) else v
+
+    def record(*args, **kw):
+        tables = kw.get("mxu_tables")
+        key = (math.prod(args[0].shape[:-2]), args[1].shape[-2], kw["height"], kw["width"],
+               "take" if tables is None else tables[0], bool(kw["subpixel"]))
+        if key not in calls:
+            calls[key] = (copy(args), {k: copy(v) for k, v in kw.items()})
+        return real(*args, **kw)
+
+    pose = traffic.pose_gt[0, 0]
+    # the scorer's calls go through pso's name for the kernels' module
+    pso.knn_cuda = types.SimpleNamespace(project_compare_batched=record)
+    try:
+        for i in range(3):
+            k = traffic.index(i)
+            out = est.estimate(traffic.depth[k, 0], pose, traffic.hand_base[k, 0],
+                               traffic.hand_q, key=torch.Generator(dev).manual_seed(seed + i),
+                               mode="init" if i == 0 else "track")
+            pose = out.pose
+    finally:
+        pso.knn_cuda = knn_cuda
+    return calls
+
+
+def _k6_agree(terms, ref, where: str) -> tuple[float, float]:
+    """K6's terms against the plain version's: counts and coverage exact,
+    sums within K6_*_TOL. Returns the largest support and fitness
+    differences."""
+    import torch
+
+    check(torch.equal(terms.counted, ref.counted), f"K6's counted samples part from {where}")
+    check(torch.equal(terms.coverage, ref.coverage), f"K6's coverage parts from {where}")
+    d_sup = (terms.support - ref.support).abs()
+    d_fit = (terms.fitness - ref.fitness).abs()
+    check(bool((d_sup <= K6_SUPPORT_TOL * ref.support.abs().clamp(min=1.0)).all()),
+          f"K6's support parts from {where}: {d_sup.max().item():.3e}")
+    check(bool((d_fit <= K6_FITNESS_TOL).all()),
+          f"K6's fitness parts from {where}: {d_fit.max().item():.3e}")
+    return d_sup.max().item(), d_fit.max().item()
+
+
+def _k6_library(args: tuple, kw: dict, n: int) -> tuple[tuple, dict]:
+    """A recorded single-object call ([1,P,4,4] poses) as a library of `n`
+    objects: object o's particles rolled by 7 o, its images (and tables)
+    shifted by o pixels, its samples, mask and patch origins the call's."""
+    import torch
+
+    def imgs(t):
+        return None if t is None else torch.cat([torch.roll(t, o, dims=-1) for o in range(n)])
+
+    def rows(t):
+        return None if t is None else t.expand(n, *t.shape[1:]).contiguous()
+
+    poses, pts, nrm, obs, valid, hand = args
+    lib = (torch.cat([torch.roll(poses, 7 * o, dims=1) for o in range(n)]), rows(pts),
+           rows(nrm), imgs(obs), imgs(valid), imgs(hand))
+    lkw = dict(kw, observed_enc=imgs(kw.get("observed_enc")),
+               sample_mask=rows(kw.get("sample_mask")))
+    t = kw.get("mxu_tables")
+    if t is not None:
+        lkw["mxu_tables"] = (t[0], imgs(t[1]), imgs(t[2])) + (
+            (rows(t[3]), rows(t[4]), t[5]) if t[0] == "patch" else ())
+    return lib, lkw
+
+
+def _k6_object(args: tuple, kw: dict, o: int) -> tuple[tuple, dict]:
+    """Object o of a `_k6_library` call, alone."""
+    def one(t):
+        return None if t is None else t[o:o + 1]
+
+    okw = dict(kw, observed_enc=one(kw.get("observed_enc")),
+               sample_mask=one(kw.get("sample_mask")))
+    t = kw.get("mxu_tables")
+    if t is not None:
+        okw["mxu_tables"] = (t[0],) + tuple(one(x) for x in t[1:5]) + t[5:]
+    return tuple(one(a) for a in args), okw
+
+
+def k6_phase(knn_cuda, dev) -> dict:
+    """K6 on the served frames of the point-mode track cell (module
+    docstring): each recorded call against the plain version, repeated
+    bitwise, timed beside the plain chain; K6_SWEEP's calls as a sweep of
+    LIB objects, each object alone bitwise the library's launch. Returns
+    the finisher's numbers, every shape's under "shapes"."""
+    import torch
+
+    calls = _k6_calls(knn_cuda, dev, seed=2147483749)
+    seen = {key[4:] for key in calls}
+    check(seen == K6_RULES, f"K6's calls in the cell hold (rule, subpixel) {sorted(seen)}, "
+          f"not {sorted(K6_RULES)}")
+    res, max_err = {}, [0.0, 0.0]
+    for key, (args, kw) in sorted(calls.items()):
+        P, N, H, W, rule, sub = key
+        where = f"P={P} N={N} {W}x{H} {rule}{' sub-pixel' if sub else ''}"
+        run = lambda: knn_cuda.project_compare_batched(*args, **kw)
+        plain = lambda: knn_cuda.project_compare_plain(*args, **kw)
+        terms, again, ref = run(), run(), plain()
+        check(all(torch.equal(a, b) for a, b in zip(terms, again)),
+              f"K6 repeated call not bitwise equal at {where}")
+        err = _k6_agree(terms, ref, f"the plain version at {where}")
+        max_err = [max(a, b) for a, b in zip(max_err, err)]
+        t = dict(ms=graph_ms(run, 20), kernels_per_call=len(kernel_names(run)),
+                 call_ms=time_ms(run, 20), host_us=host_us(run, 20),
+                 plain_ms=graph_ms(plain, 3))
+        b_ms, b_by = pc_bound(P, N, sub)
+        print(f"K6 {where}: device {1e3 * t['ms']:.2f} us/launch "
+              f"({t['kernels_per_call']} kernel(s)/call), call incl. host issue "
+              f"{t['call_ms']:.5f} ms, host {t['host_us']:.1f} us/call, plain chain "
+              f"{1e3 * t['plain_ms']:.2f} us in a graph, bound {1e3 * b_ms:.2f} us ({b_by}); "
+              f"counts exact, |d support| {err[0]:.2e}, |d fitness| {err[1]:.2e}; "
+              f"{int((terms.counted > 0).sum())} of {P} particles count; repeat bitwise",
+              flush=True)
+        res[key] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    for key in K6_SWEEP:
+        check(key in calls, f"the cell made no K6 call at {key}")
+        lib, lkw = _k6_library(*calls[key], LIB)
+        terms = knn_cuda.project_compare_batched(*lib, **lkw)
+        for o in range(LIB):
+            one, okw = _k6_object(lib, lkw, o)
+            alone = knn_cuda.project_compare_batched(*one, **okw)
+            check(all(torch.equal(a[0], b[o]) for a, b in zip(alone, terms)),
+                  f"K6 object {o} alone differs from the library's launch at {key}")
+            _k6_agree(alone, knn_cuda.project_compare_plain(*one, **okw),
+                      f"the plain version, object {o} of a sweep of {LIB} at {key}")
+        ms = graph_ms(lambda: knn_cuda.project_compare_batched(*lib, **lkw), 5)
+        plain_ms = graph_ms(lambda: knn_cuda.project_compare_plain(*lib, **lkw), 2)
+        print(f"K6 a sweep of {LIB} x {key[0]} at {key[3]}x{key[2]} ({key[4]}): device "
+              f"{1e3 * ms:.2f} us/launch, plain chain {1e3 * plain_ms:.2f} us in a graph; "
+              f"each object alone bitwise, counts exact against the plain version",
+              flush=True)
+    return dict(max_abs_err=max_err[1], max_support_err=max_err[0], **res[K6_SWEEP[1]],
+                shapes={f"P={P} N={N} {W}x{H} {r}{'/sub' if sb else ''}": v
+                        for (P, N, H, W, r, sb), v in res.items()})
+
+
 def sweep_phase(knn_cuda, dev) -> None:
     """Device ms per launch (a CUDA graph of 20 calls) of the launch plans
     within the kernels' limits, at each main-path shape
@@ -1183,8 +1378,8 @@ def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
     kernel phases held against the plain version (K1/K2: NN_SHAPES at B = 1
     and B = P, NN_GROUPED, SHARD_SHAPES and GATE_SHAPES; K3: GN_SHAPES at
     B = 1, and
-    GN_GROUPED; K4: an Ns of GI_SHAPES; K5: an (Nr, H, W) of K5_SHAPES);
-    prints the launches by shape."""
+    GN_GROUPED; K4: an Ns of GI_SHAPES; K5: an (Nr, H, W) of K5_SHAPES; K6:
+    a (rule, subpixel) of K6_RULES); prints the launches by shape."""
     seen = launched(knn_cuda) if seen is None else seen
     print(f"{path} launches by (P, blocks, Ns, Nm): "
           f"{ {k: v for k, v in seen.items() if v} }", flush=True)
@@ -1197,6 +1392,8 @@ def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
             unchecked = {sh for sh in shapes if sh[2] not in gi_ns}
         elif k == "K5":
             unchecked = {sh for sh in shapes if sh[1:] not in K5_SHAPES}
+        elif k == "K6":
+            unchecked = {sh for sh in shapes if sh[4:] not in K6_RULES}
         else:
             unchecked = set(shapes) - (gn_ok if k == "K3" else nn_ok)
         check(not unchecked, f"{path} launched {k} at {sorted(unchecked)}, "
@@ -1221,7 +1418,7 @@ def track_phase(sc: Scene, knn_cuda) -> tuple[dict, dict]:
         check(not res.reinitialized, f"frame {i} re-initialized")
         check(adds < 5.0, f"frame {i}: ADD-S {adds:.3f} mm >= 5 mm")
     n = counts(knn_cuda)
-    check(n["K1"] > 0 and n["K4"] > 0, f"the tracked frames launched {n}")
+    check(n["K1"] > 0 and n["K4"] > 0 and n["K6"] > 0, f"the tracked frames launched {n}")
     steady = sum(frame_ms[1:]) / len(frame_ms[1:])
     print(f"Tracker.step: {steady:.2f} ms/frame (frames 1-4; frame 0 "
           f"{frame_ms[0]:.2f} ms), launches in 5 frames {n}", flush=True)
@@ -1593,7 +1790,8 @@ def pixel_phase(sq: dict, knn_cuda, dev) -> None:
         check(not out.reinitialized, f"pixel-mode frame {i} re-initialized")
         check(a < 5.0, f"pixel-mode frame {i}: ADD-S {a:.3f} mm >= 5 mm")
     n = counts(knn_cuda)
-    check(n["K1"] > 0 and n["K5"] > 0, f"the pixel-mode frames launched {n}")
+    check(n["K1"] > 0 and n["K5"] > 0 and n["K6"] == 0,
+          f"the pixel-mode frames launched {n}")
     print(f"pixel mode: {sum(ms[1:]) / 2:.2f} ms/frame (frames 1-2; frame 0 "
           f"{ms[0]:.2f} ms) beside point mode's {sq['track_ms']:.2f} ms/frame; "
           f"ADD-S mm {[round(a, 3) for a in adds]}; peak device memory "
@@ -1740,6 +1938,9 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
     check(n["K1"] > 0 and n["K2"] == 0 and n["K3"] == 0,
           f"library path launches {n}: K1 must carry it alone")
     check_grouped(knn_cuda, "K1", "library path")
+    per_object = [sh for sh in knn_cuda.project_compare_batched.shapes if sh[0] % LIB]
+    check(n["K6"] > 0 and not per_object,
+          f"library path scored per object, not per library: {per_object}")
     step_ms = sum(ms[2:]) / 2
     print(f"LibrarySweep.step, {LIB} objects x 512 particles: init step "
           f"{ms[0]:.2f} ms, tracked {step_ms:.2f} ms/step (steps 2-3; step 1 "
@@ -3133,11 +3334,13 @@ KERNEL_NAMES = (
     (re.compile(r"\bnn_gn_kernel<|_Z\d+nn_gn_kernelI"), "nn_gn_batched"),
     (re.compile(r"\bgn_iterate_kernel<|\d+gn_iterate_kernelI"), "gn_iterate_batched"),
     (re.compile(r"splat_compare_kernel(?:\b|E)"), "splat_compare_batched"),
+    (re.compile(r"\bproject_compare_kernel<|\d+project_compare_kernelI"),
+     "project_compare_batched"),
 )
 
 
 def traced_kernels(call) -> dict:
-    """K1-K5's kernels that one `call` ran on the card, by wrapper
+    """K1-K6's kernels that one `call` ran on the card, by wrapper
     name, counted by kernel name in a torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
@@ -3158,7 +3361,7 @@ def traced_kernels(call) -> dict:
 
 def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
     """Phase 18 (a): one more call of the case's program, a replay, under
-    torch.profiler; K1-K5 counted by name in its trace must equal the
+    torch.profiler; K1-K6 counted by name in its trace must equal the
     launches the program recorded at its capture. The profiler now and then
     loses events, so a trace that counts fewer is taken again, up to
     `tries` times; one that counts more fails at once."""
@@ -3180,7 +3383,7 @@ def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
 
 
 def replay_launches(owners) -> dict:
-    """K1-K5's launches in the replays of `owners`' programs alone
+    """K1-K6's launches in the replays of `owners`' programs alone
     (no warm-up, no eager frame): each program's replays times the
     launches recorded at its capture."""
     n = dict.fromkeys(KERNELS, 0)
@@ -3276,6 +3479,14 @@ def main(argv: list[str]) -> int:
         run_phase("18 compiled programs", programs_phase, Scene(dev), knn_cuda, dev, smi)
         print(smi, flush=True)
         return 0
+    if "--points-only" in argv:
+        run_phase("3 K6", k6_phase, knn_cuda, dev)
+        sc = Scene(dev)
+        lb = run_phase("10 library", library_phase, sc, knn_cuda, dev, None)
+        run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
+        run_phase("18 compiled programs", programs_phase, sc, knn_cuda, dev, smi)
+        print(smi, flush=True)
+        return 0
     if "--pixel-only" in argv:
         run_phase("3 K5", k5_phase, knn_cuda, dev)
         sc = Scene(dev)
@@ -3293,7 +3504,10 @@ def main(argv: list[str]) -> int:
                     if hasattr(knn_cuda, KERNELS["K4"]) else None),
              # and one from before K5
              "K5": (run_phase("3 K5", k5_phase, knn_cuda, dev)
-                    if hasattr(knn_cuda, KERNELS["K5"]) else None)}
+                    if hasattr(knn_cuda, KERNELS["K5"]) else None),
+             # and one from before K6
+             "K6": (run_phase("3 K6", k6_phase, knn_cuda, dev)
+                    if hasattr(knn_cuda, KERNELS["K6"]) else None)}
     if "--kernels-only" in argv:
         print(smi, flush=True)
         return 0
@@ -3314,7 +3528,7 @@ def main(argv: list[str]) -> int:
         print(smi, flush=True)
         return 0
     track_n, single = run_phase("4 track", track_phase, sc, knn_cuda)
-    launches = {"K1": track_n["K1"], "K4": track_n["K4"],
+    launches = {"K1": track_n["K1"], "K4": track_n["K4"], "K6": track_n["K6"],
                 "K3": run_phase("5 cold start", cold_start_phase, sc, knn_cuda),
                 "K2": run_phase("6 nn_fn", nn_fn_phase, sc, knn_cuda)}
     with tempfile.TemporaryDirectory() as work:
@@ -3326,7 +3540,7 @@ def main(argv: list[str]) -> int:
         lib_launches = dict(run_phase("12 library kernels", library_kernels_phase,
                                       lb, sc, knn_cuda, dev, work),
                             K1=lb["launches"]["K1"], K4=lb["launches"]["K4"],
-                            K5=lb["launches"]["K5"])
+                            K5=lb["launches"]["K5"], K6=lb["launches"]["K6"])
         run_phase("13 bench", bench_phase, knn_cuda, dev, single)
         mesh_launches = run_phase("14 mesh", mesh_phase, sc, lb, knn_cuda, dev, single)
         blind_launches = run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)

@@ -1,5 +1,5 @@
 """The nearest-neighbour kernels K1, K2 and K3, the Gauss-Newton kernel K4 and
-the render-and-compare kernel K5, each beside its plain version.
+the scoring kernels K5 and K6, each beside its plain version.
 
 Counterparts of `icra20_hand_object_pose_tpu/ops/knn_pallas.py`:
 
@@ -18,20 +18,25 @@ Counterparts of `icra20_hand_object_pose_tpu/ops/knn_pallas.py`:
   - K5 `splat_compare_batched`, which replaces no TPU kernel either: the
     pixel-mode scorer (`ScoreConfig(mode="pixel")`), each particle's samples
     splatted into a z-buffer, min-filtered and compared with the observed
-    depth pixel by pixel, one block per particle, without a [P,H,W] image.
+    depth pixel by pixel, one block per particle, without a [P,H,W] image;
+  - K6 `project_compare_batched`, which replaces no TPU kernel either: the
+    point-mode scorer (`score.compare_points` on the samples posed by each
+    particle), one block per particle, without an [O,P,N] tensor.
 
 Two versions of each function live here:
 
   - `nn_gather_plain`, `nn_plain`, `nn_gn_plain`: plain PyTorch, built on a
     dense [P,Ns,Nm] difference-square distance tensor and `argmin`;
-    `icp.gn_iterate_plain`; and `splat_compare_plain`, the ATen pair
-    `render.splat_depth_batched` + `score.compare_depth`. The CPU path, and
-    the reference each CUDA kernel is held against on the card.
+    `icp.gn_iterate_plain`; `splat_compare_plain`, the ATen pair
+    `render.splat_depth_batched` + `score.compare_depth`; and
+    `project_compare_plain`, se3's posing + `score.compare_points`. The CPU
+    path, and the reference each CUDA kernel is held against on the card.
   - the CUDA kernels in `csrc/` (`nn_gather.cu` holds K1 and K2, `nn_gn.cu`
-    K3, `gn_iterate.cu` K4, `splat_compare.cu` K5), built with nvcc for
-    sm_90a into one library in the package's `build/` directory at first
-    use and bound with ctypes. They keep the distance matrix (K5: the
-    rendered images) out of device memory (see the source notes).
+    K3, `gn_iterate.cu` K4, `splat_compare.cu` K5, `project_compare.cu`
+    K6), built with nvcc for sm_90a into one library in the package's
+    `build/` directory at first use and bound with ctypes. They keep the
+    distance matrix (K5: the rendered images, K6: the posed samples) out
+    of device memory (see the source notes).
 
 The query of K1/K2 and the scene of K3 come in B blocks, B any divisor of
 the particle count P: particle p takes block p // (P // B). B = 1 is one
@@ -42,9 +47,10 @@ each, searched in one launch (parallel/sharding.py).
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
 other. `<wrapper>.launches` counts kernel launches and `<wrapper>.shapes`
-counts them by (P, B, Ns, Nm) (K4: by (P, O, Ns); K5: by (P, Nr, H, W)). A
-launch recorded into a CUDA graph is counted when the graph replays
-(utils/program.py: `launch_counts`, `launches_since` and `add_launches`).
+counts them by (P, B, Ns, Nm) (K4: by (P, O, Ns); K5: by (P, Nr, H, W);
+K6: by (P, N, H, W, rule, subpixel)). A launch recorded into a CUDA graph
+is counted when the graph replays (utils/program.py: `launch_counts`,
+`launches_since` and `add_launches`).
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import se3
 from . import icp, render, score
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -274,18 +281,20 @@ def build() -> tuple[ctypes.CDLL, str]:
     lib.nn_gn_launch.argtypes = [ptr] * 12 + [i32] * 7 + [f32] * 3 + [ptr]
     lib.gn_iterate_launch.argtypes = [ptr] * 15 + [i32] * 5 + [f32] * 6 + [ptr]
     lib.splat_compare_launch.argtypes = [ptr] * 11 + [i32] * 8 + [f32] * 8 + [ptr]
+    lib.project_compare_launch.argtypes = ([ptr] * 12 + [ctypes.c_longlong] * 2 + [i32] * 13
+                                           + [f32] * 11 + [ptr])
     for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch,
-               lib.gn_iterate_launch, lib.splat_compare_launch):
+               lib.gn_iterate_launch, lib.splat_compare_launch, lib.project_compare_launch):
         fn.restype = i32
     return lib, log
 
 
 @functools.cache
 def _entry_points() -> tuple:
-    """The C entry points (K1, K2, K3, K4, K5), bound once."""
+    """The C entry points (K1, K2, K3, K4, K5, K6), bound once."""
     lib, _ = build()
     return (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch, lib.gn_iterate_launch,
-            lib.splat_compare_launch)
+            lib.splat_compare_launch, lib.project_compare_launch)
 
 
 def _check(device: torch.device, *specs) -> None:
@@ -708,12 +717,159 @@ splat_compare_batched.launches = 0
 splat_compare_batched.shapes = collections.Counter()
 
 
+# K6's lookup rules (csrc/project_compare.cu's Rule): "take" without
+# `mxu_tables`, else the tables' first field
+PC_RULES = {"take": 0, "image": 1, "patch": 2}
+
+
+def project_compare_plain(
+    poses: torch.Tensor,           # [P,4,4], or [O,P,4,4] for a library
+    render_pts: torch.Tensor,      # [N,3], or [O,N,3]
+    render_normals: torch.Tensor,  # as render_pts
+    observed: torch.Tensor,        # [H,W], or [1|O,H,W]
+    observed_valid: torch.Tensor,  # as observed, bool
+    hand_depth: torch.Tensor | None = None,  # as observed, +inf where no hand
+    **kw,
+) -> score.ScoreTerms:
+    """Plain PyTorch K6: the samples posed by `se3.transform_points` and
+    `se3.rotate_vectors`, then `score.compare_points` (`kw`: its keyword
+    arguments)."""
+    if poses.dim() == 4:       # each object's samples beside its particle axis
+        render_pts, render_normals = render_pts[:, None], render_normals[:, None]
+    return score.compare_points(
+        se3.transform_points(poses, render_pts), se3.rotate_vectors(poses, render_normals),
+        observed, observed_valid, hand_depth, **kw)
+
+
+def _object_rows(t: torch.Tensor, row_dims: int, lead: tuple, name: str
+                 ) -> tuple[torch.Tensor, int, int]:
+    """A per-object argument of K6 (a row of `row_dims` axes, [N] or [N,3]:
+    one for all particles, or [O, ...] with [O,P] particles) as (tensor,
+    rows, stride between rows in elements); each row contiguous, the rows
+    at any stride (a slice of the samples is read where it lies)."""
+    if t.dim() == row_dims:
+        t = t[None]
+    B = t.shape[0]
+    if t.dim() != row_dims + 1 or (B != 1 and (len(lead) != 2 or lead[0] != B)):
+        raise ValueError(f"{name} of shape {tuple(t.shape)} does not match particles {lead}")
+    if t[0].numel() and not t[0].is_contiguous():
+        t = t.contiguous()
+    return t, B, t.stride(0) if B > 1 else 0
+
+
+def project_compare_batched(
+    poses: torch.Tensor,           # [P,4,4] float32, or [O,P,4,4] for a library
+    render_pts: torch.Tensor,      # [N,3], or [O,N,3]: object o's samples
+    render_normals: torch.Tensor,  # as render_pts
+    observed: torch.Tensor,        # [H,W], or [1|O,H,W] (one for all, or per object)
+    observed_valid: torch.Tensor,  # as observed, bool
+    hand_depth: torch.Tensor | None = None,  # as observed, +inf where no hand
+    *,
+    fx: float, fy: float, cx: float, cy: float,
+    height: int, width: int,
+    depth_tau: float = 0.01,
+    wrong_side_penalty: float = 2.0,
+    occlusion_margin: float = 0.005,
+    invalid_penalty: float = 0.3,
+    subpixel: bool = False,
+    ghost_dilate: int = 1,
+    observed_enc: torch.Tensor | None = None,
+    mxu_tables: tuple | None = None,
+    neutral_cov_exempt: bool = False,
+    sample_mask: torch.Tensor | None = None,  # [N] bool, or [O,N]
+    mask_count_floor: float = 0.5,
+) -> score.ScoreTerms:
+    """K6, point-mode projective scoring: each particle's pose applied to
+    its object's samples and normals, and `score.compare_points` on the
+    posed samples (the lookup rule, `subpixel`, the sample mask and the
+    rest as compare_points takes them). Returns `score.ScoreTerms` over the
+    particle axes. CPU tensors take `project_compare_plain`; CUDA tensors
+    launch the kernel once, one block per particle, whose size (and so the
+    order of the support's sum) follows N alone: object o of a library gets
+    the bits of object o alone."""
+    kw = dict(fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
+              depth_tau=depth_tau, wrong_side_penalty=wrong_side_penalty,
+              occlusion_margin=occlusion_margin, invalid_penalty=invalid_penalty,
+              subpixel=subpixel, ghost_dilate=ghost_dilate, observed_enc=observed_enc,
+              mxu_tables=mxu_tables, neutral_cov_exempt=neutral_cov_exempt,
+              sample_mask=sample_mask, mask_count_floor=mask_count_floor)
+    lead, N = tuple(poses.shape[:-2]), render_pts.shape[-2]
+    rows = math.prod(lead)
+    device = poses.device
+    if not _route("K6", device, P=rows, N=N, H=height, W=width):
+        return project_compare_plain(poses, render_pts, render_normals, observed,
+                                     observed_valid, hand_depth, **kw)
+    if len(lead) not in (1, 2):
+        raise ValueError(f"poses must be [P,4,4] or [O,P,4,4], not {tuple(poses.shape)}")
+    rule = "take" if mxu_tables is None else mxu_tables[0]
+    if rule not in PC_RULES:
+        raise ValueError(f"K6 reads by the rules {sorted(PC_RULES)}, not {rule!r}")
+    pv0 = pu0 = None
+    size, n_patch = 0, 1
+    if rule == "take":
+        enc = (observed_enc if observed_enc is not None
+               else score.encode_observed(observed, observed_valid, ghost_dilate))
+        hand_img = hand_depth
+    else:
+        enc, hand_img = mxu_tables[1:3]
+        if rule == "patch":
+            pv0, pu0, size = mxu_tables[3:]
+            pv0, n_patch, _ = _object_rows(pv0.contiguous(), 1, lead, "pv0")
+            pu0 = _object_rows(pu0.contiguous(), 1, lead, "pu0")[0]
+    pts, n_obj, obj_stride = _object_rows(render_pts, 2, lead, "render_pts")
+    nrm, n_nrm, nrm_stride = _object_rows(render_normals, 2, lead, "render_normals")
+    if (n_nrm, nrm_stride) != (n_obj, obj_stride):
+        pts, nrm = pts.contiguous(), nrm.contiguous()
+        obj_stride = pts.stride(0) if n_obj > 1 else 0
+    enc, img_div = _image_blocks(enc, lead, rows)
+    hand, hand_div = (_image_blocks(hand_img, lead, rows) if hand_img is not None
+                      else (None, rows))
+    mask, n_mask, mask_stride = (_object_rows(sample_mask, 1, lead, "sample_mask")
+                                 if sample_mask is not None else (None, 1, 0))
+    poses = poses.contiguous()
+    f32 = torch.float32
+    HW = (height, width)
+    _check(device, ("poses", poses, lead + (4, 4), f32),
+           ("render_pts", pts[0], (N, 3), f32),
+           ("render_normals", nrm[0], (N, 3), f32),
+           ("observed_enc", enc, (rows // img_div,) + HW, f32),
+           *([("hand", hand, (rows // hand_div,) + HW, f32)] if hand is not None else []),
+           *([("sample_mask", mask[0], (N,), torch.bool)] if mask is not None else []),
+           *([("pv0", pv0, (n_patch, N), torch.int64), ("pu0", pu0, (n_patch, N), torch.int64)]
+             if pv0 is not None else []))
+    fitness, coverage, support, counted = (torch.empty((rows,), dtype=f32, device=device)
+                                           for _ in range(4))
+    _launch("project_compare", device, _entry_points()[5],
+            poses.data_ptr(), pts.data_ptr(), nrm.data_ptr(), enc.data_ptr(),
+            hand.data_ptr() if hand is not None else None,
+            mask.data_ptr() if mask is not None else None,
+            pv0.data_ptr() if pv0 is not None else None,
+            pu0.data_ptr() if pu0 is not None else None,
+            fitness.data_ptr(), coverage.data_ptr(), support.data_ptr(), counted.data_ptr(),
+            obj_stride, mask_stride, rows, N, height, width, PC_RULES[rule], int(bool(subpixel)),
+            rows // n_obj, img_div, hand_div, rows // n_mask, rows // n_patch,
+            int(size), int(bool(neutral_cov_exempt)), float(fx), float(fy), float(cx),
+            float(cy), float(depth_tau),
+            # 1 / tau rounded once to FP32, the support's factor: ATen's CUDA
+            # division by a Python scalar multiplies by it
+            1.0 / depth_tau, float(3.0 * depth_tau), float(wrong_side_penalty),
+            float(invalid_penalty), float(occlusion_margin), float(mask_count_floor))
+    project_compare_batched.launches += 1
+    project_compare_batched.shapes[(rows, N, height, width, rule, bool(subpixel))] += 1
+    return score.ScoreTerms(*(t.reshape(lead) for t in (fitness, coverage, support,
+                                                          counted)))
+
+
+project_compare_batched.launches = 0
+project_compare_batched.shapes = collections.Counter()
+
+
 _COUNTED = (nn_gather_batched, nn_batched, nn_gn_batched, gn_iterate_batched,
-            splat_compare_batched)
+            splat_compare_batched, project_compare_batched)
 
 
 def launch_counts() -> dict:
-    """Each wrapper's (launches, shapes) as they stand: K1-K5 by name."""
+    """Each wrapper's (launches, shapes) as they stand: K1-K6 by name."""
     return {fn.__name__: (fn.launches, collections.Counter(fn.shapes))
             for fn in _COUNTED}
 

@@ -9,8 +9,8 @@ pulls, axial slides, the full-cloud ICP polish, fine-tier scoring and the
 score-only finisher. Every perturbation draws from `gen` (a
 torch.Generator or injected draws). With `gn_fn` (kernel K3) the in-scan
 refine and the explorer pulls run the fused search + normal-equation
-path; the polish keeps `corr_fn`/`nn_fn`. Pixel-mode scoring
-(`score_particles`) runs kernel K5 on the card.
+path; the polish keeps `corr_fn`/`nn_fn`. Scoring (`score_particles`) runs
+kernel K6 on the card in point mode, K5 in pixel mode.
 
 A library of O objects is searched as one program (parallel/sharding.py):
 `pso` takes its arguments with a leading object axis (the swarms
@@ -105,19 +105,17 @@ def score_particles(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render-and-compare fitness for every particle: (fitness [P],
     coverage [P]). mode="point" (the default): projective per-sample
-    association, no per-particle z-buffer. mode="pixel": a splat render of
-    each particle and a per-pixel compare (exact z-buffered semantics;
-    `knn_cuda.splat_compare_batched`), counted by `tier` ("coarse" or
-    "full") in the tracer's `score.renders.<tier>`.
+    association, no per-particle z-buffer (`knn_cuda.project_compare_batched`),
+    counted by `tier` ("coarse" or "full") in the tracer's
+    `score.points.<tier>`. mode="pixel": a splat render of each particle and
+    a per-pixel compare (exact z-buffered semantics;
+    `knn_cuda.splat_compare_batched`), counted in `score.renders.<tier>`.
     For a library every output is [O,P] and sample_mask [O,Nr]."""
-    library = poses.dim() == 4
-    if library:       # each object's samples beside its particle axis
-        render_pts, render_normals = render_pts[:, None], render_normals[:, None]
-    pts_cam = se3.transform_points(poses, render_pts)
     if score_cfg.mode == "point":
-        nrm_cam = se3.rotate_vectors(poses, render_normals)
-        terms = score.compare_points(
-            pts_cam, nrm_cam, observed_depth, observed_valid, hand_depth,
+        # each particle's samples posed, projected, looked up and reduced:
+        # kernel K6 on the card, se3's posing and compare_points on the CPU
+        terms = knn_cuda.project_compare_batched(
+            poses, render_pts, render_normals, observed_depth, observed_valid, hand_depth,
             fx=fx, fy=fy, cx=cx, cy=cy, height=height, width=width,
             depth_tau=score_cfg.depth_tau,
             wrong_side_penalty=score_cfg.wrong_side_penalty,
@@ -131,11 +129,13 @@ def score_particles(
             sample_mask=sample_mask,
             mask_count_floor=score_cfg.self_occ_count_floor,
         )
+        profiling.count(f"score.points.{tier}", terms.fitness.numel())
     else:
         if sample_mask is not None:
             render_w = render_w * sample_mask
-        if library:
-            render_w = render_w[:, None]
+        if poses.dim() == 4:   # a library: each object's samples beside its particles
+            render_pts, render_w = render_pts[:, None], render_w[:, None]
+        pts_cam = se3.transform_points(poses, render_pts)
         # one z-buffered render per particle (of every object): kernel K5
         # on the card, the splat and the per-pixel compare on the CPU
         terms = knn_cuda.splat_compare_batched(

@@ -25,6 +25,10 @@ A library of O objects is scored in one pass: the samples then carry a
 leading object axis ([O,P,N,3]) and each image argument is [O,H,W] (one
 observation per object) or [1,H,W] (one shared by all); object o's samples
 read image o. The [H,W] form is the single-object case.
+
+On the card the point-mode scorer runs as kernel K6
+(`knn_cuda.project_compare_batched`: the posing and `compare_points` in
+one launch); `compare_points` is its plain version, which the CPU runs.
 """
 from __future__ import annotations
 

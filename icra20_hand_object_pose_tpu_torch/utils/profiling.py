@@ -23,8 +23,9 @@
         program's next replay or at `snapshot`. A warm-up marks nothing;
         an eager call marks events on the card, the host clock on the CPU;
       * counters (`count`). One counted inside a traced function (the
-        pixel-mode scorer's `score.renders.coarse` and `.full`, particle
-        renders by scoring tier) is recorded by a capture, which runs
+        scorer's particles by scoring tier: `score.points.coarse` and
+        `.full` in point mode, `score.renders.coarse` and `.full` in pixel
+        mode) is recorded by a capture, which runs
         nothing (`counted_since`), and counted once per replay
         (`add_counts`), as the kernels' launch counters are; and on the
         card each program call's device
@@ -536,8 +537,10 @@ class Tracer:
           - `<stage>_ms` for each of STAGES (absent if no run was marked);
           - `kernels_per_frame`: kernel nodes replayed (absent without a
             replay);
-          - `coarse_renders_per_frame`, `full_renders_per_frame`: the
-            pixel-mode scorer's particle renders by tier (absent without
+          - `coarse_points_per_frame`, `full_points_per_frame`: the
+            point-mode scorer's particles by tier, and
+            `coarse_renders_per_frame`, `full_renders_per_frame`: the
+            pixel-mode scorer's particle renders (each absent without
             one);
           - `launch_ms`: host ms in `program.replay` (absent without one);
           - `init_step_share`: % of frames that ran the init program;
@@ -566,8 +569,9 @@ class Tracer:
             if "program.kernels" in c:
                 per["kernels_per_frame"] = c["program.kernels"] / f
             for tier in ("coarse", "full"):
-                if f"score.renders.{tier}" in c:
-                    per[f"{tier}_renders_per_frame"] = c[f"score.renders.{tier}"] / f
+                for what in ("points", "renders"):
+                    if f"score.{what}.{tier}" in c:
+                        per[f"{tier}_{what}_per_frame"] = c[f"score.{what}.{tier}"] / f
             if "program.replay" in spans:
                 per["launch_ms"] = 1e3 * spans["program.replay"]["total_s"] / f
             per["init_step_share"] = 100.0 * c["init.steps"] / f

@@ -13,10 +13,12 @@ around each program call (`portbench/spans.py`). Prints one JSON line:
 `frame_ms`, `program_ms` (the benchmark's card ms per frame in the program
 calls) and `device_idle_share`, the tracer's per-frame readings
 (`per_frame`: the five stages, `kernels_per_frame`, `launch_ms`,
-`init_step_share`, `wasted_slot_share`, `idle_ms`, and in pixel mode the
-scorer's particle renders by tier, `coarse_renders_per_frame` and
+`init_step_share`, `wasted_slot_share`, `idle_ms`, and the scorer's
+particles by tier: in point mode `coarse_points_per_frame` and
+`full_points_per_frame`, in pixel mode `coarse_renders_per_frame` and
 `full_renders_per_frame`), the kernels' launches in the window per frame
-by wrapper and by shape (`launches`; K5's shape is (P, Nr, H, W)), the
+by wrapper and by shape (`launches`; K5's shape is (P, Nr, H, W), K6's
+(P, N, H, W, rule, subpixel)), the
 stages' sum over
 `program_ms`, the idle by span (ms per frame; by the span open when the
 card went idle, and split over the spans the host passed through) against

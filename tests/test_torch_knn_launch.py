@@ -89,14 +89,15 @@ def test_library_name_hashes_sources_and_headers(tmp_path, name, hashed):
 
 def test_build_compiles_only_cu_files():
     """The header is hashed but compiled only through the sources that
-    include it: the search kernels' (K4, the Gauss-Newton tail, and K5, the
-    render-and-compare scorer, run no search)."""
+    include it: the search kernels' (K4, the Gauss-Newton tail, and K5 and
+    K6, the scorers, run no search)."""
     assert (knn_cuda.CSRC / "nn_search.cuh").exists()
     assert sorted(p.name for p in knn_cuda.CSRC.glob("*.cu")) == [
-        "gn_iterate.cu", "nn_gather.cu", "nn_gn.cu", "splat_compare.cu"]
+        "gn_iterate.cu", "nn_gather.cu", "nn_gn.cu", "project_compare.cu",
+        "splat_compare.cu"]
     for name in ("nn_gather.cu", "nn_gn.cu"):
         assert '#include "nn_search.cuh"' in (knn_cuda.CSRC / name).read_text()
-    for name in ("gn_iterate.cu", "splat_compare.cu"):
+    for name in ("gn_iterate.cu", "splat_compare.cu", "project_compare.cu"):
         assert "nn_search.cuh" not in (knn_cuda.CSRC / name).read_text()
 
 
@@ -145,15 +146,19 @@ def test_capture_launches_count_once_per_replay(monkeypatch):
         monkeypatch.setattr(fn, "launches", 0)
         monkeypatch.setattr(fn, "shapes", collections.Counter())
     monkeypatch.setattr(knn_cuda, "_route", lambda *a, **k: True)
-    monkeypatch.setattr(knn_cuda, "_entry_points", lambda: (None, None, None))
+    monkeypatch.setattr(knn_cuda, "_entry_points", lambda: (None,) * 6)
     monkeypatch.setattr(knn_cuda, "_launch", lambda *args: None)
     z = torch.zeros
+    k6 = (8, 8, 6, 5, "take", False)                    # K6's (P, N, H, W, rule, subpixel)
 
     def body(src, query, ref):
         knn_cuda.nn_gather_batched(query, ref, ref)
         knn_cuda.nn_gather_batched(query, ref, ref)
         knn_cuda.nn_gn_batched(query[0], query[0], z(8), ref, ref, maxd2=1e-4,
                                min_cos=0.5)
+        knn_cuda.project_compare_batched(
+            z(2, 4, 4, 4), z(2, 8, 3), z(2, 8, 3), z(1, 6, 5), z(1, 6, 5, dtype=torch.bool),
+            fx=1.0, fy=1.0, cx=0.0, cy=0.0, height=6, width=5, observed_enc=z(1, 6, 5))
         return (ref,)
 
     before = knn_cuda.launch_counts()
@@ -163,13 +168,16 @@ def test_capture_launches_count_once_per_replay(monkeypatch):
     assert rec["nn_gather_batched"] == (2, collections.Counter({(4, 1, 8, 16): 2}))
     assert rec["nn_gn_batched"] == (1, collections.Counter({(4, 1, 8, 16): 1}))
     assert rec["nn_batched"] == (0, collections.Counter())
+    assert rec["project_compare_batched"] == (1, collections.Counter({k6: 1}))
     for _ in range(3):                                  # three replays
         knn_cuda.add_launches(rec)
     assert knn_cuda.nn_gather_batched.launches == 6
     assert knn_cuda.nn_gather_batched.shapes == {(4, 1, 8, 16): 6}
     assert knn_cuda.nn_gn_batched.launches == 3 and knn_cuda.nn_batched.launches == 0
+    assert knn_cuda.project_compare_batched.shapes == {k6: 3}
 
     prog = program.Program(torch.device("cpu"), 1)
     prog(body, [0], (z(1, 8, 3), z(4, 16, 3)), {})
     assert knn_cuda.nn_gather_batched.launches == 8 and knn_cuda.nn_gn_batched.launches == 4
+    assert knn_cuda.project_compare_batched.launches == 4
     assert prog.launches == {} and prog.replays == 0

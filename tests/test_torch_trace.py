@@ -8,7 +8,8 @@ traced function directly and the stage marks read the host clock:
 - results bitwise equal with the tracer on and off (`Tracker.step` in both
   modes, `LibrarySweep.step` per scene);
 - a mixed sweep step's counters (objects 1 and 5 re-initialise);
-- pixel-mode scoring's renders by tier (`score.renders.coarse`, `.full`),
+- the scorer's particles by tier (`score.points.*` in point mode,
+  `score.renders.*` in pixel mode),
   and a capture's counts taken out and added once per replay;
 - span self times, the innermost open span and the per-frame readings on
   a fake clock;
@@ -105,17 +106,20 @@ def test_off_by_default_records_nothing(tracked):
     assert all(v == 0.0 for v in snap["stage_ms"].values())
 
 
-def test_init_then_track_spans_stages_counters(tracked):
+def test_init_then_track_spans_stages_counters(tiny, tracked):
     res, snap = tracked[True]
     assert [r.reinitialized for r in res] == [True, False]
     assert snap["frames"] == 2
+    # the point-mode scorer's particles by tier: those a pixel-mode frame renders
     assert snap["counters"] == {"init.steps": 1, "init.needed": 1, "slots.init": 1,
-                                "slots.track": 1}
+                                "slots.track": 1, **_points(tiny["cfg"], 1)}
     # each stage once a frame, in order
     assert snap["runs"] == [(1, profiling.STAGES), (2, profiling.STAGES)]
     assert all(snap["stage_ms"][s] > 0 for s in profiling.STAGES)
     per = snap["per_frame"]
     assert per["init_step_share"] == 50.0 and per["wasted_slot_share"] == 0.0
+    assert per["coarse_points_per_frame"] == snap["counters"]["score.points.coarse"] / 2
+    assert per["full_points_per_frame"] == snap["counters"]["score.points.full"] / 2
     assert sum(per[f"{s}_ms"] for s in profiling.STAGES) == pytest.approx(
         sum(snap["stage_ms"].values()) / 2)
     # the CPU replays no graph and has no card to go idle
@@ -170,7 +174,7 @@ def test_sweep_bitwise_on_and_off(tiny):
     assert snap["frames"] == 2 and snap["runs"] == [(1, profiling.STAGES),
                                                     (2, profiling.STAGES)]
     assert snap["counters"] == {"init.steps": 1, "init.needed": 2, "slots.init": 2,
-                                "slots.track": 2}
+                                "slots.track": 2, **_points(tiny["cfg"], 2)}
     names = {k: v["count"] for k, v in snap["spans"].items()}
     assert names == {"sweep.step": 2, "sweep.prep": 2, "sweep.mask_read": 2,
                      "sweep.run": 2, "program.call": 2, "sweep.merge": 2,
@@ -197,7 +201,7 @@ def test_mixed_sweep_step_counts():
         snap = profiling.snapshot()
     assert res.reinitialized.tolist() == [o in (1, 5) for o in range(O)]
     assert snap["counters"] == {"init.steps": 1, "init.needed": 2, "slots.init": 8,
-                                "slots.track": 8}
+                                "slots.track": 8, **_points(tiny["cfg"], O)}
     per = snap["per_frame"]
     assert per["init_step_share"] == 100.0
     assert per["wasted_slot_share"] == pytest.approx(100.0 * 6 / 16)
@@ -307,10 +311,20 @@ def _renders(cfg, mode: str) -> tuple[int, int]:
     return coarse, 2 * cands + finisher
 
 
+def _points(cfg, O: int) -> dict:
+    """The point-mode scorer's counters of an init frame and a tracked
+    frame (or program) of O objects: the particles a pixel-mode frame
+    renders, by tier."""
+    want = [_renders(cfg, mode) for mode in ("init", "track")]
+    return {"score.points.coarse": O * sum(w[0] for w in want),
+            "score.points.full": O * sum(w[1] for w in want)}
+
+
 def test_pixel_mode_counts_renders_by_tier(tiny):
     """A pixel-mode init frame then a tracked frame count each particle
-    render by tier, and the per-frame readings hold them; point mode
-    counts none (test_init_then_track_spans_stages_counters)."""
+    render by tier, and the per-frame readings hold them; pixel mode counts
+    no point scoring, and point mode no render
+    (test_init_then_track_spans_stages_counters)."""
     cfg = dataclasses.replace(tiny["cfg"], score=ScoreConfig(mode="pixel"))
     fr = tiny["frames"][0]
     with _Traced():
@@ -322,6 +336,7 @@ def test_pixel_mode_counts_renders_by_tier(tiny):
     c = snap["counters"]
     assert c["score.renders.coarse"] == sum(w[0] for w in want)
     assert c["score.renders.full"] == sum(w[1] for w in want)
+    assert not [k for k in c if k.startswith("score.points.")]
     per = snap["per_frame"]
     assert per["coarse_renders_per_frame"] == c["score.renders.coarse"] / 2
     assert per["full_renders_per_frame"] == c["score.renders.full"] / 2
