@@ -325,6 +325,7 @@ import sys
 import tempfile
 import time
 import types
+from collections import Counter
 
 # the kernels by ID: their wrappers (ops/knn_cuda.py), the TPU kernel each
 # replaces (K4, K5 and K6 replace none: on the TPU the ICP tail and both
@@ -1355,21 +1356,38 @@ def timed_step(tracker, fr, pose_gt, dense, label: str, profiled: bool = False):
     return res, ms, adds
 
 
+_AT_RESET: dict = {}     # knn_cuda.launch_counts() at the last reset_counts
+
+
 def reset_counts(knn_cuda) -> None:
-    for name in KERNELS.values():
-        fn = getattr(knn_cuda, name)
-        fn.launches = 0
-        fn.shapes.clear()
+    """Starts the launches that `counts` and `launched` read (the kernels'
+    counts only grow: this keeps where they stood)."""
+    _AT_RESET.clear()
+    _AT_RESET.update(knn_cuda.launch_counts())
 
 
 def counts(knn_cuda) -> dict:
-    return {k: getattr(knn_cuda, name).launches for k, name in KERNELS.items()}
+    """Each kernel's launches since the last reset."""
+    return {k: sum(shapes.values()) for k, shapes in launched(knn_cuda).items()}
 
 
 def launched(knn_cuda) -> dict:
     """Each kernel's launches by (P, B, Ns, Nm) (K4: (P, O, Ns); K5: (P, Nr,
     H, W)) since the last reset."""
-    return {k: dict(getattr(knn_cuda, name).shapes) for k, name in KERNELS.items()}
+    now = knn_cuda.launch_counts()
+    return {k: dict(now[name][1] - _AT_RESET.get(name, (0, Counter()))[1])
+            for k, name in KERNELS.items()}
+
+
+def recorded_launches(prog) -> dict:
+    """What one replay of a program launches, by wrapper name: its
+    capture's record (utils/program.py), which counts a launch under
+    (wrapper, shape)."""
+    n = dict.fromkeys(KERNELS.values(), 0)
+    for key, k in prog.record.items():
+        if isinstance(key, tuple):
+            n[key[0]] += k
+    return n
 
 
 def check_shapes(knn_cuda, path: str, seen: dict | None = None) -> None:
@@ -1887,7 +1905,7 @@ def check_grouped(knn_cuda, kernel: str, path: str, n: int = LIB) -> None:
     """Every launch of `kernel` since the last reset took one query (scene)
     block per object or one for all: `n` (the library's objects) or 1
     blocks, never one launch per object."""
-    shapes = getattr(knn_cuda, KERNELS[kernel]).shapes
+    shapes = launched(knn_cuda)[kernel]
     check(bool(shapes), f"{path} never launched {kernel}")
     bad = [s for s in shapes if s[0] % n or s[1] not in (1, n)]
     check(not bad, f"{path} launched {kernel} per object, not per library: {bad}")
@@ -1938,7 +1956,7 @@ def library_phase(sc: Scene, knn_cuda, dev, single: dict | None) -> dict:
     check(n["K1"] > 0 and n["K2"] == 0 and n["K3"] == 0,
           f"library path launches {n}: K1 must carry it alone")
     check_grouped(knn_cuda, "K1", "library path")
-    per_object = [sh for sh in knn_cuda.project_compare_batched.shapes if sh[0] % LIB]
+    per_object = [sh for sh in launched(knn_cuda)["K6"] if sh[0] % LIB]
     check(n["K6"] > 0 and not per_object,
           f"library path scored per object, not per library: {per_object}")
     step_ms = sum(ms[2:]) / 2
@@ -3025,12 +3043,12 @@ def program_case(label: str, owner, traced: str, run_program, run_eager,
     prog = progs[ran[0]]
     print(f"18 {label}: {len(seeds)} seeds, replays {prog.replays}, fields parting "
           f"from eager {partings if any(partings.values()) else 'none (bitwise)'}; "
-          f"launches a replay {_launch_summary(prog.launches)}", flush=True)
+          f"launches a replay {_launch_summary(prog)}", flush=True)
     return dict(label=label, program=prog, partings=partings, run=run_program)
 
 
-def _launch_summary(launches: dict) -> dict:
-    return {name: n for name, (n, _) in launches.items() if n}
+def _launch_summary(prog) -> dict:
+    return {name: n for name, n in recorded_launches(prog).items() if n}
 
 
 def estimate_case(label, est, args, mode) -> dict:
@@ -3310,7 +3328,7 @@ def programs_phase(sc: Scene, knn_cuda, dev, smi: str) -> dict:
     out = dict(
         programs={c["label"]: dict(capture_s=t["capture_s"], stages_ms=t["stages_ms"],
                                    kernel_nodes=t["nodes"]["kernel"],
-                                   launches=_launch_summary(c["program"].launches))
+                                   launches=_launch_summary(c["program"]))
                   for c, t in zip(cases, traced)},
         pools=pools,
         tracker_ms_per_frame={k: v / PROGRAM_FRAMES for k, v in trk.items()},
@@ -3366,7 +3384,7 @@ def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
     loses events, so a trace that counts fewer is taken again, up to
     `tries` times; one that counts more fails at once."""
     prog = case["program"]
-    want = {name: n for name, (n, _) in prog.launches.items()}
+    want = recorded_launches(prog)
     for attempt in range(1, tries + 1):
         replays = prog.replays
         got = traced_kernels(lambda: case["run"](seed + attempt))
@@ -3379,7 +3397,7 @@ def traced_replay(case: dict, dev, seed: int = 7, tries: int = 4) -> None:
     check(got == want, f"18 {case['label']}: a replay's trace holds {got}, its "
           f"capture recorded {want} ({tries} traces)")
     print(f"18 {case['label']}: a replay's trace holds the recorded kernels "
-          f"{_launch_summary(prog.launches)} (trace {attempt})", flush=True)
+          f"{_launch_summary(prog)} (trace {attempt})", flush=True)
 
 
 def replay_launches(owners) -> dict:
@@ -3390,7 +3408,7 @@ def replay_launches(owners) -> dict:
     names = {name: k for k, name in KERNELS.items()}
     for owner in owners:
         for prog in owner._programs.programs.values():
-            for name, (k, _) in prog.launches.items():
+            for name, k in recorded_launches(prog).items():
                 n[names[name]] += k * prog.replays
     return n
 

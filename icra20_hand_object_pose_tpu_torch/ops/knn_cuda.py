@@ -46,11 +46,14 @@ each, searched in one launch (parallel/sharding.py).
 
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
-other. `<wrapper>.launches` counts kernel launches and `<wrapper>.shapes`
-counts them by (P, B, Ns, Nm) (K4: by (P, O, Ns); K5: by (P, Nr, H, W);
-K6: by (P, N, H, W, rule, subpixel)). A launch recorded into a CUDA graph
-is counted when the graph replays (utils/program.py: `launch_counts`,
-`launches_since` and `add_launches`).
+other. `KERNELS` declares each C entry point once (tests hold it to the
+prototypes in `csrc/`): `build` binds them from it, and `launch` calls one
+with its arguments by name and counts the launch by wrapper and shape (K1,
+K2: (P, Pq, Ns, Nm); K3: (P, G, Ns, Nm); K4: (O*P, O, Ns); K5: (P, Nr, H,
+W); K6: (P, N, H, W, rule, subpixel)), once per replay if a CUDA graph
+recorded it (utils/profiling.py); `launch_counts` reads the counts.
+Adding a kernel takes a `.cu` file, one `KERNELS` entry, and one wrapper
+beside its plain version.
 """
 from __future__ import annotations
 
@@ -68,7 +71,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils import se3
+from ..utils import profiling, se3
 from . import icp, render, score
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -266,35 +269,66 @@ def _compile_and_link(lib_path: Path) -> str:
         shutil.rmtree(tmp_dir, ignore_errors=True)
 
 
+PTR, INT, LONG, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+class Kernel(NamedTuple):
+    """One C entry point of `csrc/`."""
+
+    name: str     # its wrapper's name, under which its launches are counted
+    symbol: str   # the C function
+    args: tuple   # (name, ctypes type) in the prototype's order, the stream last
+
+
+def _kernel(name: str, symbol: str, *runs) -> Kernel:
+    """A `Kernel` from runs of (ctypes type, the names of consecutive
+    arguments of that type), the stream appended."""
+    args = tuple((arg, ty) for ty, names in runs for arg in names.split())
+    return Kernel(name, symbol, args + (("stream", PTR),))
+
+
+K1 = _kernel("nn_gather_batched", "nn_gather_launch",
+             (PTR, "query ref_pts ref_nrm matched mnormal d2 idx"),
+             (INT, "P Pq Ns Nm q width S"))
+K2 = _kernel("nn_batched", "nn_launch",
+             (PTR, "query ref_pts d2 idx"),
+             (INT, "P Pq Ns Nm q width S"))
+K3 = _kernel("nn_gn_batched", "nn_gn_launch",
+             (PTR, "scene scene_nrm scene_w ref ref_nrm H g wsum hits wrr partial arrived"),
+             (INT, "P G Ns Nm q S scene_split"),
+             (FLOAT, "maxd2 min_cos tau2"))
+K4 = _kernel("gn_iterate_batched", "gn_iterate_launch",
+             (PTR, "poses frozen matched mnormal d2 scene_c scene_nrm scene_w anchor wsum "
+                   "poses_out frozen_out rmse inliers support"),
+             (INT, "O P Gn Ns reps"),
+             (FLOAT, "maxd2 min_cos damping step_scale tol2 tau2"))
+K5 = _kernel("splat_compare_batched", "splat_compare_launch",
+             (PTR, "pts w obs valid enc hand n_obs fitness coverage support counted"),
+             (INT, "rows Nr H W r w_div img_div hand_div"),
+             (FLOAT, "fx fy cx cy tau pen inv_pen margin"))
+K6 = _kernel("project_compare_batched", "project_compare_launch",
+             (PTR, "poses pts nrm enc hand mask pv0 pu0 fitness coverage support counted"),
+             (LONG, "obj_stride mask_stride"),
+             (INT, "rows N H W rule subpixel pts_div img_div hand_div mask_div patch_div "
+                   "size exempt"),
+             (FLOAT, "fx fy cx cy tau inv_tau edge_tau pen inv_pen margin count_floor"))
+KERNELS = (K1, K2, K3, K4, K5, K6)
+
+
 @functools.cache
 def build() -> tuple[ctypes.CDLL, str]:
     """Compile `csrc/` into one library (once per content of its sources
-    and headers) and load it. Returns (library, compiler log). Raises if
-    nvcc fails."""
+    and headers), load it and bind each entry point of `KERNELS`. Returns
+    (library, compiler log). Raises if nvcc fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / library_name()
     log = "" if lib_path.exists() else _compile_and_link(lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nn_gather_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
-    lib.nn_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-    lib.nn_gn_launch.argtypes = [ptr] * 12 + [i32] * 7 + [f32] * 3 + [ptr]
-    lib.gn_iterate_launch.argtypes = [ptr] * 15 + [i32] * 5 + [f32] * 6 + [ptr]
-    lib.splat_compare_launch.argtypes = [ptr] * 11 + [i32] * 8 + [f32] * 8 + [ptr]
-    lib.project_compare_launch.argtypes = ([ptr] * 12 + [ctypes.c_longlong] * 2 + [i32] * 13
-                                           + [f32] * 11 + [ptr])
-    for fn in (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch,
-               lib.gn_iterate_launch, lib.splat_compare_launch, lib.project_compare_launch):
-        fn.restype = i32
+    for kernel in KERNELS:
+        fn = getattr(lib, kernel.symbol)
+        fn.argtypes = [ty for _, ty in kernel.args]
+        fn.restype = INT
     return lib, log
-
-
-@functools.cache
-def _entry_points() -> tuple:
-    """The C entry points (K1, K2, K3, K4, K5, K6), bound once."""
-    lib, _ = build()
-    return (lib.nn_gather_launch, lib.nn_launch, lib.nn_gn_launch, lib.gn_iterate_launch,
-            lib.splat_compare_launch, lib.project_compare_launch)
 
 
 def _check(device: torch.device, *specs) -> None:
@@ -322,18 +356,33 @@ def _route(kernel: str, device: torch.device, **sizes: int) -> bool:
     return True
 
 
-def _launch(kernel: str, device: torch.device, fn, *args) -> None:
-    """Calls C entry point `fn` with `args` and the device's current stream,
-    entering the device only when it is not the current one; raises if the
-    launch failed."""
+def launch(kernel: Kernel, device: torch.device, shape: tuple, /, **args) -> None:
+    """Launches `kernel` on `device`'s current stream with `args`, every
+    declared argument by name (a tensor passes its data pointer, None a
+    null pointer); raises if a name is missing or not declared, or if the
+    launch failed. Counts the launch under (kernel.name, shape)."""
+    names = [name for name, _ in kernel.args[:-1]]
+    if args.keys() != set(names):
+        raise TypeError(f"{kernel.symbol}: missing {sorted(set(names) - args.keys())}, "
+                        f"not declared {sorted(args.keys() - set(names))}")
+    _call(kernel, device, [v.data_ptr() if isinstance(v, torch.Tensor) else v
+                           for v in map(args.__getitem__, names)])
+    profiling.launched(kernel.name, shape)
+
+
+def _call(kernel: Kernel, device: torch.device, values: list) -> None:
+    """Calls the kernel's C entry point with `values` and the device's
+    current stream, entering the device only when it is not the current
+    one; raises if the launch failed."""
+    fn = getattr(build()[0], kernel.symbol)
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
-        err = fn(*args, stream)
+        err = fn(*values, stream)
     else:
         with torch.cuda.device(device):
-            err = fn(*args, stream)
+            err = fn(*values, stream)
     if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError_t {err}")
 
 
 _ARRIVED: dict[torch.device, torch.Tensor] = {}
@@ -395,17 +444,10 @@ def nn_gather_batched(
     mnormal = torch.empty((P, Ns, 3), dtype=f32, device=device)
     d2 = torch.empty((P, Ns), dtype=f32, device=device)
     idx = torch.empty((P, Ns), dtype=torch.int32, device=device)
-    _launch("nn_gather", device, _entry_points()[0],
-            query.data_ptr(), ref_pts.data_ptr(), ref_normals.data_ptr(),
-            matched.data_ptr(), mnormal.data_ptr(), d2.data_ptr(),
-            idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
-    nn_gather_batched.launches += 1
-    nn_gather_batched.shapes[(P, Pq, Ns, Nm)] += 1
+    launch(K1, device, (P, Pq, Ns, Nm), query=query, ref_pts=ref_pts, ref_nrm=ref_normals,
+           matched=matched, mnormal=mnormal, d2=d2, idx=idx, P=P, Pq=Pq, Ns=Ns, Nm=Nm,
+           q=plan.q, width=plan.width, S=plan.groups)
     return matched, mnormal, d2, idx
-
-
-nn_gather_batched.launches = 0
-nn_gather_batched.shapes = collections.Counter()
 
 
 def nn_batched(
@@ -426,15 +468,9 @@ def nn_batched(
     plan = plan or nn_plan(P, Ns, Nm)
     d2 = torch.empty((P, Ns), dtype=torch.float32, device=device)
     idx = torch.empty((P, Ns), dtype=torch.int32, device=device)
-    _launch("nn", device, _entry_points()[1], query.data_ptr(), ref.data_ptr(),
-            d2.data_ptr(), idx.data_ptr(), P, Pq, Ns, Nm, plan.q, plan.width, plan.groups)
-    nn_batched.launches += 1
-    nn_batched.shapes[(P, Pq, Ns, Nm)] += 1
+    launch(K2, device, (P, Pq, Ns, Nm), query=query, ref_pts=ref, d2=d2, idx=idx, P=P,
+           Pq=Pq, Ns=Ns, Nm=Nm, q=plan.q, width=plan.width, S=plan.groups)
     return idx, d2
-
-
-nn_batched.launches = 0
-nn_batched.shapes = collections.Counter()
 
 
 def nn_gn_batched(
@@ -485,21 +521,12 @@ def nn_gn_batched(
     if plan.scene_split > 1:
         partial = torch.empty((P, plan.scene_split, 30), dtype=f32, device=device)
         arrived = _arrival_counts(device, P)
-    _launch("nn_gn", device, _entry_points()[2],
-            scene_c.data_ptr(), scene_normals.data_ptr(), scene_w.data_ptr(),
-            ref_c.data_ptr(), ref_normals.data_ptr(), H.data_ptr(), g.data_ptr(),
-            wsum.data_ptr(), hits.data_ptr(), wrr.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            arrived.data_ptr() if arrived is not None else None,
-            P, G, Ns, Nm, plan.q, plan.groups, plan.scene_split, float(maxd2),
-            float(min_cos), float(tau2))
-    nn_gn_batched.launches += 1
-    nn_gn_batched.shapes[(P, G, Ns, Nm)] += 1
+    launch(K3, device, (P, G, Ns, Nm), scene=scene_c, scene_nrm=scene_normals,
+           scene_w=scene_w, ref=ref_c, ref_nrm=ref_normals, H=H, g=g, wsum=wsum, hits=hits,
+           wrr=wrr, partial=partial, arrived=arrived, P=P, G=G, Ns=Ns, Nm=Nm, q=plan.q,
+           S=plan.groups, scene_split=plan.scene_split, maxd2=float(maxd2),
+           min_cos=float(min_cos), tau2=float(tau2))
     return H, g, wsum, hits, wrr
-
-
-nn_gn_batched.launches = 0
-nn_gn_batched.shapes = collections.Counter()
 
 
 def gn_iterate_batched(
@@ -561,23 +588,15 @@ def gn_iterate_batched(
     rmse, inliers, support = (torch.empty((O, P), dtype=f32, device=device)
                               for _ in range(3))
     tau2 = support_tau * support_tau if support_tau > 0 else 0.0
-    _launch("gn_iterate", device, _entry_points()[3],
-            poses.data_ptr(), frozen.data_ptr(), matched.data_ptr(), mnorm.data_ptr(),
-            d2.data_ptr(), scene_c.data_ptr(), scene_normals.data_ptr(),
-            scene_w.data_ptr(), anchor.data_ptr(), wsum.data_ptr(),
-            poses_out.data_ptr(), frozen_out.data_ptr(), rmse.data_ptr(),
-            inliers.data_ptr(), support.data_ptr(), O, P, G, Ns, gn_reps,
-            float(max_corresp_dist * max_corresp_dist), float(min_cos),
-            float(damping), float(step_scale), float(converge_tol * converge_tol),
-            float(tau2))
-    gn_iterate_batched.launches += 1
-    gn_iterate_batched.shapes[(O * P, O, Ns)] += 1
+    launch(K4, device, (O * P, O, Ns), poses=poses, frozen=frozen, matched=matched,
+           mnormal=mnorm, d2=d2, scene_c=scene_c, scene_nrm=scene_normals, scene_w=scene_w,
+           anchor=anchor, wsum=wsum, poses_out=poses_out, frozen_out=frozen_out, rmse=rmse,
+           inliers=inliers, support=support, O=O, P=P, Gn=G, Ns=Ns, reps=gn_reps,
+           maxd2=float(max_corresp_dist * max_corresp_dist), min_cos=float(min_cos),
+           damping=float(damping), step_scale=float(step_scale),
+           tol2=float(converge_tol * converge_tol), tau2=float(tau2))
     return poses_out, icp.IcpStats(rmse=rmse, inliers=inliers, converged=frozen_out,
                                    support=support)
-
-
-gn_iterate_batched.launches = 0
-gn_iterate_batched.shapes = collections.Counter()
 
 
 # the splat's largest radius (csrc/splat_compare.cu's kMaxRadius)
@@ -699,22 +718,14 @@ def splat_compare_batched(
     n_obs = valid.reshape(B, -1).sum(1, dtype=torch.int32)
     fitness, coverage, support, counted = (torch.empty((rows,), dtype=f32, device=device)
                                            for _ in range(4))
-    _launch("splat_compare", device, _entry_points()[4],
-            pts.data_ptr(), w.data_ptr(), obs.data_ptr(), valid.data_ptr(),
-            enc.data_ptr(), hand.data_ptr() if hand is not None else None,
-            n_obs.data_ptr(), fitness.data_ptr(), coverage.data_ptr(),
-            support.data_ptr(), counted.data_ptr(), rows, Nr, height, width, radius,
-            w_div, img_div, hand_div, float(fx), float(fy), float(cx), float(cy),
-            float(depth_tau), float(wrong_side_penalty), float(invalid_penalty),
-            float(occlusion_margin))
-    splat_compare_batched.launches += 1
-    splat_compare_batched.shapes[(rows, Nr, height, width)] += 1
+    launch(K5, device, (rows, Nr, height, width), pts=pts, w=w, obs=obs, valid=valid,
+           enc=enc, hand=hand, n_obs=n_obs, fitness=fitness, coverage=coverage,
+           support=support, counted=counted, rows=rows, Nr=Nr, H=height, W=width, r=radius,
+           w_div=w_div, img_div=img_div, hand_div=hand_div, fx=float(fx), fy=float(fy),
+           cx=float(cx), cy=float(cy), tau=float(depth_tau), pen=float(wrong_side_penalty),
+           inv_pen=float(invalid_penalty), margin=float(occlusion_margin))
     return score.ScoreTerms(*(t.reshape(lead) for t in (fitness, coverage, support,
                                                           counted)))
-
-
-splat_compare_batched.launches = 0
-splat_compare_batched.shapes = collections.Counter()
 
 
 # K6's lookup rules (csrc/project_compare.cu's Rule): "take" without
@@ -839,60 +850,30 @@ def project_compare_batched(
              if pv0 is not None else []))
     fitness, coverage, support, counted = (torch.empty((rows,), dtype=f32, device=device)
                                            for _ in range(4))
-    _launch("project_compare", device, _entry_points()[5],
-            poses.data_ptr(), pts.data_ptr(), nrm.data_ptr(), enc.data_ptr(),
-            hand.data_ptr() if hand is not None else None,
-            mask.data_ptr() if mask is not None else None,
-            pv0.data_ptr() if pv0 is not None else None,
-            pu0.data_ptr() if pu0 is not None else None,
-            fitness.data_ptr(), coverage.data_ptr(), support.data_ptr(), counted.data_ptr(),
-            obj_stride, mask_stride, rows, N, height, width, PC_RULES[rule], int(bool(subpixel)),
-            rows // n_obj, img_div, hand_div, rows // n_mask, rows // n_patch,
-            int(size), int(bool(neutral_cov_exempt)), float(fx), float(fy), float(cx),
-            float(cy), float(depth_tau),
-            # 1 / tau rounded once to FP32, the support's factor: ATen's CUDA
-            # division by a Python scalar multiplies by it
-            1.0 / depth_tau, float(3.0 * depth_tau), float(wrong_side_penalty),
-            float(invalid_penalty), float(occlusion_margin), float(mask_count_floor))
-    project_compare_batched.launches += 1
-    project_compare_batched.shapes[(rows, N, height, width, rule, bool(subpixel))] += 1
+    launch(K6, device, (rows, N, height, width, rule, bool(subpixel)), poses=poses, pts=pts,
+           nrm=nrm, enc=enc, hand=hand, mask=mask, pv0=pv0, pu0=pu0, fitness=fitness,
+           coverage=coverage, support=support, counted=counted, obj_stride=obj_stride,
+           mask_stride=mask_stride, rows=rows, N=N, H=height, W=width, rule=PC_RULES[rule],
+           subpixel=int(bool(subpixel)), pts_div=rows // n_obj, img_div=img_div,
+           hand_div=hand_div, mask_div=rows // n_mask, patch_div=rows // n_patch,
+           size=int(size), exempt=int(bool(neutral_cov_exempt)), fx=float(fx), fy=float(fy),
+           cx=float(cx), cy=float(cy), tau=float(depth_tau),
+           # 1 / tau rounded once to FP32, the support's factor: ATen's CUDA
+           # division by a Python scalar multiplies by it
+           inv_tau=1.0 / depth_tau, edge_tau=float(3.0 * depth_tau),
+           pen=float(wrong_side_penalty), inv_pen=float(invalid_penalty),
+           margin=float(occlusion_margin), count_floor=float(mask_count_floor))
     return score.ScoreTerms(*(t.reshape(lead) for t in (fitness, coverage, support,
                                                           counted)))
 
 
-project_compare_batched.launches = 0
-project_compare_batched.shapes = collections.Counter()
-
-
-_COUNTED = (nn_gather_batched, nn_batched, nn_gn_batched, gn_iterate_batched,
-            splat_compare_batched, project_compare_batched)
-
-
 def launch_counts() -> dict:
-    """Each wrapper's (launches, shapes) as they stand: K1-K6 by name."""
-    return {fn.__name__: (fn.launches, collections.Counter(fn.shapes))
-            for fn in _COUNTED}
-
-
-def launches_since(before: dict) -> dict:
-    """The launches counted since `before` (a `launch_counts` result), taken
-    back out of the counters: what a CUDA graph's capture recorded, which
-    launched nothing. `add_launches` counts them once per replay."""
-    out = {}
-    for fn in _COUNTED:
-        n0, shapes0 = before[fn.__name__]
-        out[fn.__name__] = (fn.launches - n0, fn.shapes - shapes0)
-        fn.launches = n0
-        fn.shapes -= out[fn.__name__][1]
-    return out
-
-
-def add_launches(recorded: dict) -> None:
-    """Counts `recorded` (a `launches_since` result) as launched."""
-    for fn in _COUNTED:
-        n, shapes = recorded.get(fn.__name__, (0, ()))
-        fn.launches += n
-        fn.shapes.update(shapes)
+    """Each wrapper's launches as they stand, {name: (launches, Counter of
+    shapes)} for K1-K6 (a kernel never launched: (0, Counter()))."""
+    shapes = {kernel.name: collections.Counter() for kernel in KERNELS}
+    for (name, shape), n in profiling.launches().items():
+        shapes[name][shape] = n
+    return {name: (sum(c.values()), c) for name, c in shapes.items()}
 
 
 def _fold(t: torch.Tensor) -> torch.Tensor:

@@ -22,20 +22,21 @@
         of the graph, and each replay's stage times are read before the
         program's next replay or at `snapshot`. A warm-up marks nothing;
         an eager call marks events on the card, the host clock on the CPU;
-      * counters (`count`). One counted inside a traced function (the
-        scorer's particles by scoring tier: `score.points.coarse` and
-        `.full` in point mode, `score.renders.coarse` and `.full` in pixel
-        mode) is recorded by a capture, which runs
-        nothing (`counted_since`), and counted once per replay
-        (`add_counts`), as the kernels' launch counters are; and on the
-        card each program call's device
-        interval (timing events around its input copies, replay and output
-        clones), put on the host clock by an anchor event at `reset`: the
-        card's idle gaps named by the host span the card went idle in, and
-        split over the spans the host passed through meanwhile, without a
-        profiler.
+      * counters (`count`), among them those counted inside a traced
+        function (the scorer's particles by scoring tier:
+        `score.points.coarse` and `.full` in point mode,
+        `score.renders.coarse` and `.full` in pixel mode); and on the card
+        each program call's device interval (timing events around its
+        input copies, replay and output clones), put on the host clock by
+        an anchor event at `reset`: the card's idle gaps named by the host
+        span the card went idle in, and split over the spans the host
+        passed through meanwhile, without a profiler.
     `snapshot` reduces them to per-frame readings. Off, every site is one
     flag test: no event is recorded and no graph gains a node.
+  - One store for the kernels' launches (`launched`: always, never
+    cleared) and the tracer's counters (while it is on, until `reset`). A
+    capture runs nothing: what it counted comes back out (`recording`) and
+    is counted once per replay (`recount`).
 
 torch.profiler loses events of kernels that take a few microseconds, so
 `device_ms` is a lower bound of the card's busy time.
@@ -192,32 +193,48 @@ def span(name: str, frame: bool = False):
     return _Span(TRACER, name, frame)
 
 
+# The counts: a kernel launch under (kernel, shape), a tracer counter under
+# its name (a str)
+_COUNTS: Counter = Counter()
+
+
 def count(name: str, n: int = 1) -> None:
     """Adds `n` to the counter `name`."""
     if _ON:
-        TRACER.counters[name] += n
+        _COUNTS[name] += n
 
 
-def counters() -> Counter:
-    """The counters as they stand (a copy; empty while the tracer is off)."""
-    return Counter(TRACER.counters) if _ON else Counter()
+def launched(kernel: str, shape: tuple) -> None:
+    """Counts one launch of `kernel` at `shape`, the tracer on or off."""
+    _COUNTS[kernel, shape] += 1
 
 
-def counted_since(before: Counter) -> Counter:
-    """The counts added since `before` (a `counters` result), taken back out
-    of the counters: what a CUDA graph's capture counted, which ran
-    nothing. `add_counts` counts them once per replay."""
-    if not _ON:
-        return Counter()
-    out = TRACER.counters - before
-    TRACER.counters -= out
-    return out
+def launches() -> Counter:
+    """The launches counted in the process, {(kernel, shape): launches}."""
+    return Counter({k: n for k, n in _COUNTS.items() if type(k) is tuple})
 
 
-def add_counts(recorded: Counter) -> None:
-    """Counts `recorded` (a `counted_since` result) as counted."""
+@contextlib.contextmanager
+def recording():
+    """Around a CUDA graph's capture, which runs nothing: yields a record
+    that at the end holds what was counted inside, taken back out of the
+    counts."""
+    global _COUNTS
+    before, record = Counter(_COUNTS), Counter()
+    try:
+        yield record
+    finally:
+        record.update(_COUNTS - before)
+        _COUNTS -= record     # in place, dropping the keys it leaves at 0
+
+
+def recount(record: Counter) -> None:
+    """Counts `record` (a `recording`'s) again, as one replay of its graph:
+    its launches, and its tracer counters while the tracer is on."""
     if _ON:
-        TRACER.counters.update(recorded)
+        _COUNTS.update(record)
+    else:
+        _COUNTS.update({k: n for k, n in record.items() if type(k) is tuple})
 
 
 def stage(name: str, device) -> None:
@@ -264,8 +281,9 @@ def active():
 
 
 def reset() -> None:
-    """Clears the tracer's spans, stages, counters and device intervals;
-    on the card, anchors the card's clock to the host's."""
+    """Clears the tracer's spans, stages, counters and device intervals
+    (not the launch counts); on the card, anchors the card's clock to the
+    host's."""
     TRACER.reset()
 
 
@@ -379,7 +397,8 @@ class Tracer:
         self.spans: list = []     # [name, start, end, parent index (-1), frame]
         self.stack: list = []     # the open spans' indices
         self.frames = 0           # frames opened (the current frame's id)
-        self.counters: Counter = Counter()
+        for name in [k for k in _COUNTS if type(k) is str]:
+            del _COUNTS[name]
         self.stage_ms = dict.fromkeys(STAGES, 0.0)
         self.runs: list = []      # (frame, its stages in order) of each run read
         self.unread: dict = {}    # id(marks) -> (marks, frame): replays not read
@@ -390,6 +409,11 @@ class Tracer:
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             self._anchor()
         self.t_reset = self.clock()
+
+    @property
+    def counters(self) -> Counter:
+        """The tracer's counters since the reset (a copy)."""
+        return Counter({k: n for k, n in _COUNTS.items() if type(k) is str})
 
     def _anchor(self) -> None:
         """An event on the card and the host clock read once it is done:
@@ -455,8 +479,8 @@ class Tracer:
     def replayed(self, marks, kernels: int) -> None:
         """After a replay: counts it and its kernel nodes, and leaves its
         stages to read."""
-        self.counters["program.replays"] += 1
-        self.counters["program.kernels"] += kernels
+        _COUNTS["program.replays"] += 1
+        _COUNTS["program.kernels"] += kernels
         if marks:
             self.unread[id(marks)] = (marks, self.frames)
 

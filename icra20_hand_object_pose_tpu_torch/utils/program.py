@@ -38,10 +38,10 @@ Inside a traced function nothing may read the device from the host (no
 `.item()`, `if` on a tensor, `nonzero`, boolean-mask indexing, or an
 operator that checks its result on the host, as `torch.linalg.eigh` does)
 or copy from the host (a host array becomes a device tensor through
-`constant`). The kernels' launch counters (ops/knn_cuda.py) count wrapper
-calls, and a replay makes none: a program records the launches its capture
-made and adds them on every replay, and so the tracer's counts made inside
-the traced function (`profiling.counted_since`, `add_counts`).
+`constant`). The kernels' launches and the tracer's counters are counted
+by the calls that make them (utils/profiling.py), and a replay makes none:
+a program records what its capture counted (`profiling.recording`) and
+counts it again on every replay (`profiling.recount`).
 
 With the tracer on (utils/profiling.py) a call is the span `program.call`,
 with `program.capture` (warm-up and capture), `program.inputs`,
@@ -57,7 +57,6 @@ from collections import Counter
 import numpy as np
 import torch
 
-from ..ops import knn_cuda
 from . import profiling, rng
 
 _CONSTANTS: dict = {}
@@ -85,8 +84,8 @@ def _clone(out):
 
 class Program:
     """One captured program: its graph, input buffers, generators, outputs,
-    the kernel launches of one replay and, captured with the tracer on, its
-    stage marks (utils/profiling.py)."""
+    what one replay counts and, captured with the tracer on, its stage
+    marks (utils/profiling.py)."""
 
     def __init__(self, device: torch.device, n_sources: int, pool=None,
                  stream=None):
@@ -95,8 +94,7 @@ class Program:
         self.gens = [torch.Generator(device=device) for _ in range(n_sources)]
         self.graph = None
         self.replays = 0          # replays run, the capture's first included
-        self.launches: dict = {}  # kernel launches of one replay
-        self.counted = Counter()  # the tracer's counts of one replay
+        self.record = Counter()   # what one replay counts (profiling.recording)
         self.marks: list = []     # (stage, event) recorded into the graph
         self._nodes = None
 
@@ -126,8 +124,7 @@ class Program:
                 self._seed(seeds)
             with profiling.span("program.replay"):
                 self.graph.replay()
-            knn_cuda.add_launches(self.launches)
-            profiling.add_counts(self.counted)
+            profiling.recount(self.record)
             self.replays += 1
             with profiling.span("program.outputs"):
                 out = _clone(self.out)
@@ -148,14 +145,10 @@ class Program:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for g in self.gens:
             graph.register_generator_state(g)
-        before = knn_cuda.launch_counts()
-        counted = profiling.counters()
-        with profiling.capturing(self.marks), torch.cuda.graph(
-                graph, pool=self.pool, stream=self.stream):
+        with (profiling.recording() as self.record, profiling.capturing(self.marks),
+              torch.cuda.graph(graph, pool=self.pool, stream=self.stream)):
             self.out = fn(rng.Stack(self.gens), *self.bufs, **static)
         graph.instantiate()
-        self.launches = knn_cuda.launches_since(before)
-        self.counted = profiling.counted_since(counted)
         self.graph = graph
         profiling.count("program.captures")
 

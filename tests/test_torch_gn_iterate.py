@@ -120,10 +120,9 @@ def test_plain_is_the_stepwise_chain(O, P, Ns, Nm, shared, reps, tau):
     args = _inputs(O, P, Ns, Nm, shared=shared, seed=O + reps)
     kw = dict(GATES, gn_reps=reps, support_tau=tau)
     want_poses, want = _stepwise(*args, **kw)
-    before = (knn_cuda.gn_iterate_batched.launches, dict(knn_cuda.gn_iterate_batched.shapes))
+    before = knn_cuda.launch_counts()["gn_iterate_batched"]
     poses, st = knn_cuda.gn_iterate_batched(*args, **kw)
-    assert (knn_cuda.gn_iterate_batched.launches,
-            dict(knn_cuda.gn_iterate_batched.shapes)) == before
+    assert knn_cuda.launch_counts()["gn_iterate_batched"] == before
     assert torch.equal(poses, want_poses)
     assert all(torch.equal(a, b) for a, b in zip(st, want))
     assert bool(st.converged[:, ::5].all()) and bool(st.converged[:, -1].all())
@@ -200,12 +199,13 @@ def _close(a, b, rel):
 def test_cuda_gn_iterate_matches_plain(cuda_device, O, P, Ns, Nm, shared, reps):
     args = _inputs(O, P, Ns, Nm, shared=shared, seed=Ns + P, device=cuda_device)
     kw = dict(GATES, gn_reps=reps, support_tau=0.01)
-    before = knn_cuda.gn_iterate_batched.launches
+    before = knn_cuda.launch_counts()["gn_iterate_batched"][0]
     poses, st = knn_cuda.gn_iterate_batched(*args, **kw)
     pp, sp = icp.gn_iterate_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert knn_cuda.gn_iterate_batched.launches == before + 1
-    assert knn_cuda.gn_iterate_batched.shapes[(O * P, O, Ns)] >= 1
+    launches, shapes = knn_cuda.launch_counts()["gn_iterate_batched"]
+    assert launches == before + 1
+    assert shapes[(O * P, O, Ns)] >= 1
     assert bool(torch.isfinite(poses).all())
     assert (poses - pp).abs().max().item() <= 1e-5
     assert torch.equal(st.converged, sp.converged)

@@ -83,13 +83,13 @@ NN_CASES = [
 def test_cuda_kernel_matches_plain(cuda_device, Pq, P, Ns, Nm, ties, plan):
     q, r, n = (torch.tensor(a, device=cuda_device)
                for a in _clouds(Pq, P, Ns, Nm, ties=ties))
-    before = knn_cuda.nn_gather_batched.launches
-    before_shape = knn_cuda.nn_gather_batched.shapes[(P, Pq, Ns, Nm)]
+    before, before_shapes = knn_cuda.launch_counts()["nn_gather_batched"]
     m, nm, d2, idx = knn_cuda.nn_gather_batched(q, r, n, plan=plan)
     mp, nmp, d2p, idxp = knn_cuda.nn_gather_plain(q, r, n)
     torch.cuda.synchronize()
-    assert knn_cuda.nn_gather_batched.launches == before + 1
-    assert knn_cuda.nn_gather_batched.shapes[(P, Pq, Ns, Nm)] == before_shape + 1
+    launches, shapes = knn_cuda.launch_counts()["nn_gather_batched"]
+    assert launches == before + 1
+    assert shapes[(P, Pq, Ns, Nm)] == before_shapes[(P, Pq, Ns, Nm)] + 1
     assert torch.equal(idx, idxp) and torch.equal(d2, d2p)
     assert torch.equal(m, mp) and torch.equal(nm, nmp)
 
@@ -110,11 +110,11 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
 def test_cuda_nn_kernel_matches_plain(cuda_device, Pq, P, Ns, Nm, ties, plan):
     q, r, _ = (torch.tensor(a, device=cuda_device)
                for a in _clouds(Pq, P, Ns, Nm, ties=ties))
-    before = knn_cuda.nn_batched.launches
+    before = knn_cuda.launch_counts()["nn_batched"][0]
     idx, d2 = knn_cuda.nn_batched(q, r, plan=plan)
     idxp, d2p = knn_cuda.nn_plain(q, r)
     torch.cuda.synchronize()
-    assert knn_cuda.nn_batched.launches == before + 1
+    assert knn_cuda.launch_counts()["nn_batched"][0] == before + 1
     assert idx.dtype == torch.int32 and idx.shape == (P, Ns)
     assert torch.equal(idx, idxp) and torch.equal(d2, d2p)
 
@@ -157,11 +157,11 @@ def test_cuda_gn_kernel_matches_plain(cuda_device, P, Ns, Nm, ties, plan, G):
             for a in _gn_inputs(P, Ns, Nm, ties=ties, G=G)]
     gates = dict(maxd2=0.02 ** 2, min_cos=math.cos(math.radians(60.0)),
                  tau2=0.01 ** 2)
-    before = knn_cuda.nn_gn_batched.launches
+    before = knn_cuda.launch_counts()["nn_gn_batched"][0]
     H, g, wsum, hits, wrr = knn_cuda.nn_gn_batched(*args, **gates, plan=plan)
     Hp, gp, wsump, hitsp, wrrp = knn_cuda.nn_gn_plain(*args, **gates)
     torch.cuda.synchronize()
-    assert knn_cuda.nn_gn_batched.launches == before + 1
+    assert knn_cuda.launch_counts()["nn_gn_batched"][0] == before + 1
     scale = Hp.abs().amax(dim=(1, 2))
     for a, b in ((H, Hp), (g, gp), (wrr, wrrp)):
         sc = scale.reshape((P,) + (1,) * (a.dim() - 1))
@@ -189,16 +189,14 @@ def test_cuda_gn_kernel_matches_plain(cuda_device, P, Ns, Nm, ties, plan, G):
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     """On CPU tensors each wrapper returns its plain version's result, and
-    neither `launches` nor `shapes` moves: they count kernel launches only."""
+    `launch_counts()` does not move: it counts kernel launches only."""
     q, r, n = (torch.tensor(a) for a in _clouds(1, 3, 20, 30))
     gn_args = [torch.tensor(a) for a in _gn_inputs(3, 20, 30)]
     gates = dict(maxd2=0.02 ** 2, min_cos=0.5, tau2=0.01 ** 2)
-    wrappers = (knn_cuda.nn_gather_batched, knn_cuda.nn_batched,
-                knn_cuda.nn_gn_batched)
-    before = [(w.launches, dict(w.shapes)) for w in wrappers]
+    before = knn_cuda.launch_counts()
     out = (knn_cuda.nn_gather_batched(q, r, n) + knn_cuda.nn_batched(q, r)
            + knn_cuda.nn_gn_batched(*gn_args, **gates))
     ref = (knn_cuda.nn_gather_plain(q, r, n) + knn_cuda.nn_plain(q, r)
            + knn_cuda.nn_gn_plain(*gn_args, **gates))
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    assert [(w.launches, dict(w.shapes)) for w in wrappers] == before
+    assert knn_cuda.launch_counts() == before

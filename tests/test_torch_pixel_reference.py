@@ -246,9 +246,9 @@ def test_cuda_k5_matches_reference_and_aten(cuda_device, n_obj, shared, radius):
     counts and coverage exact, sums within the tolerances; a repeated
     launch bitwise equal."""
     case = _to(cuda_device, *_case(3 + radius, radius, n_obj, shared))
-    before = knn_cuda.splat_compare_batched.launches
+    before = knn_cuda.launch_counts()["splat_compare_batched"][0]
     terms, pts_cam = _kernel_terms(*case, radius)
-    assert knn_cuda.splat_compare_batched.launches == before + 1
+    assert knn_cuda.launch_counts()["splat_compare_batched"][0] == before + 1
     _assert_agree(terms, _reference_terms(pts_cam, case[2], case[3], radius), "reference")
     depth, valid, enc, hand = case[3]
     aten = knn_cuda.splat_compare_plain(
@@ -280,10 +280,10 @@ def test_cuda_fitness_function_in_pixel_mode(cuda_device):
     cpu = pso.score_particles(poses, pts, pts, w, *images[:2], images[3],
                               observed_enc=images[2], **kw)
     poses, pts, w, images = _to(cuda_device, poses, pts, w, images)
-    before = knn_cuda.splat_compare_batched.launches
+    before = knn_cuda.launch_counts()["splat_compare_batched"][0]
     card = pso.score_particles(poses, pts, pts, w, *images[:2], images[3],
                                observed_enc=images[2], **kw)
-    assert knn_cuda.splat_compare_batched.launches == before + 1
+    assert knn_cuda.launch_counts()["splat_compare_batched"][0] == before + 1
     assert torch.equal(card[1].cpu(), cpu[1])
     assert bool(((card[0].cpu() - cpu[0]).abs() <= 1e-5).all())
     assert math.isfinite(float(card[0].sum()))
@@ -293,11 +293,9 @@ def test_k5_shapes_and_routing():
     """On CPU tensors the wrapper takes the plain version and counts no
     launch; its weights and images are folded as the kernel takes them."""
     poses, pts, w, images = _case(2, 1, 2, False)
-    before = (knn_cuda.splat_compare_batched.launches,
-              dict(knn_cuda.splat_compare_batched.shapes))
+    before = knn_cuda.launch_counts()["splat_compare_batched"]
     _kernel_terms(poses, pts, w, images, 1)
-    assert (knn_cuda.splat_compare_batched.launches,
-            dict(knn_cuda.splat_compare_batched.shapes)) == before
+    assert knn_cuda.launch_counts()["splat_compare_batched"] == before
     lead = (2, P)
     wr, per = knn_cuda._weight_rows(w[:, None], lead, NR)
     assert wr.shape == (2, NR) and per == P

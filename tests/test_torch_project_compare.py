@@ -169,9 +169,9 @@ def test_plain_is_compare_points(cpu_scenes, rule, subpixel, masked, form):
                  exempt=masked)
     want = _stepwise(*args)
     fn = knn_cuda.project_compare_batched
-    before = (fn.launches, dict(fn.shapes))
+    before = knn_cuda.launch_counts()[fn.__name__]
     got = fn(*args[:6], **args[6])
-    assert (fn.launches, dict(fn.shapes)) == before
+    assert knn_cuda.launch_counts()[fn.__name__] == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     lead = args[0].shape[:-2]
     assert got.fitness.shape == lead
@@ -185,16 +185,17 @@ def test_launch_arguments(monkeypatch, rule):
     """What the wrapper hands the kernel, recorded without a card: a
     library's sliced samples and mask read where they lie (their rows'
     strides, no copy), an image per object (every 4 particles), a hand
-    image for all, and the rule, sizes and gates in the C function's order;
+    image for all, and the rule, sizes and gates under the C function's names;
     the launch counted by (P, N, H, W, rule, subpixel)."""
     import collections
 
+    from icra20_hand_object_pose_tpu_torch.utils import profiling
+
     got = []
     monkeypatch.setattr(knn_cuda, "_route", lambda *a, **k: True)
-    monkeypatch.setattr(knn_cuda, "_entry_points", lambda: (None,) * 6)
-    monkeypatch.setattr(knn_cuda, "_launch", lambda kernel, device, fn, *args: got.append(args))
-    monkeypatch.setattr(knn_cuda.project_compare_batched, "launches", 0)
-    monkeypatch.setattr(knn_cuda.project_compare_batched, "shapes", collections.Counter())
+    monkeypatch.setattr(knn_cuda, "_call", lambda kernel, device, values: got.append(
+        dict(zip((name for name, _ in kernel.args), values))))
+    monkeypatch.setattr(profiling, "_COUNTS", collections.Counter())
     O, P, Nr, N, H, W = 3, 4, 16, 10, 6, 5
     pts, nrm = torch.zeros(O, Nr, 3), torch.zeros(O, Nr, 3)
     mask = torch.ones(O, Nr, dtype=torch.bool)
@@ -211,15 +212,20 @@ def test_launch_arguments(monkeypatch, rule):
     knn_cuda.project_compare_batched(torch.zeros(O, P, 4, 4), pts[:, :N], nrm[:, :N], enc,
                                      enc > 0, hand, **kw)
     (args,) = got
-    assert args[1] == pts.data_ptr() and args[2] == nrm.data_ptr()
-    assert args[5] == mask.data_ptr() and (args[6] is None) == (rule != "patch")
-    assert args[12:27] == (3 * Nr, Nr, O * P, N, H, W, knn_cuda.PC_RULES[rule], 1, P, P,
-                           O * P, P, P if rule == "patch" else O * P,
-                           3 if rule == "patch" else 0, 1)
+    assert args["pts"] == pts.data_ptr() and args["nrm"] == nrm.data_ptr()
+    assert args["mask"] == mask.data_ptr() and (args["pv0"] is None) == (rule != "patch")
+    ints = ("obj_stride", "mask_stride", "rows", "N", "H", "W", "rule", "subpixel",
+            "pts_div", "img_div", "hand_div", "mask_div", "patch_div", "size", "exempt")
+    assert tuple(args[k] for k in ints) == (
+        3 * Nr, Nr, O * P, N, H, W, knn_cuda.PC_RULES[rule], 1, P, P, O * P, P,
+        P if rule == "patch" else O * P, 3 if rule == "patch" else 0, 1)
+    floats = ("fx", "fy", "cx", "cy", "tau", "inv_tau", "edge_tau", "pen", "inv_pen",
+              "margin", "count_floor")
     f32 = [float(torch.tensor(v, dtype=torch.float32)) for v in
            (1.0, 2.0, 3.0, 4.0, 0.004, 1.0 / 0.004, 0.012, 2.0, 0.3, 0.005, 0.5)]
-    assert [float(torch.tensor(v, dtype=torch.float32)) for v in args[27:]] == f32
-    assert knn_cuda.project_compare_batched.shapes == {(O * P, N, H, W, rule, True): 1}
+    assert [float(torch.tensor(args[k], dtype=torch.float32)) for k in floats] == f32
+    assert knn_cuda.launch_counts()["project_compare_batched"][1] == {
+        (O * P, N, H, W, rule, True): 1}
 
 
 @pytest.fixture
@@ -266,12 +272,13 @@ def test_cuda_project_compare_matches_plain(cuda_device, O, P, N, H, W, rule, su
     args = _call(sc, rule, subpixel, masked, form, P, seed=P, patch=16, rot=rot,
                  trans=trans, exempt=masked)
     fn = knn_cuda.project_compare_batched
-    before = fn.launches
+    before = knn_cuda.launch_counts()[fn.__name__][0]
     got = fn(*args[:6], **args[6])
     want = knn_cuda.project_compare_plain(*args[:6], **args[6])
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    assert fn.shapes[(math.prod(args[0].shape[:-2]), N, H, W, rule, subpixel)] >= 1
+    launches, shapes = knn_cuda.launch_counts()[fn.__name__]
+    assert launches == before + 1
+    assert shapes[(math.prod(args[0].shape[:-2]), N, H, W, rule, subpixel)] >= 1
     assert bool((want.counted > 0).any()) and bool((want.support > 0).any())
     _agree(got, want)
     again = fn(*args[:6], **args[6])

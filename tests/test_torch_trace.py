@@ -344,25 +344,27 @@ def test_pixel_mode_counts_renders_by_tier(tiny):
 
 def test_capture_counts_once_per_replay():
     """What a capture counts comes back out of the counters
-    (`counted_since`) and is counted once per replay (`add_counts`); with
-    the tracer off nothing is counted or recorded."""
+    (`profiling.recording`) and is counted once per replay
+    (`profiling.recount`); with the tracer off nothing is counted or
+    recorded, and a record's counters are not counted again."""
     with _Traced() as t:
         profiling.count("init.steps")
-        before = profiling.counters()
-        profiling.count("score.renders.coarse", 5)            # as a capture counts
-        profiling.count("score.renders.full", 2)
-        rec = profiling.counted_since(before)
+        before = t.counters
+        with profiling.recording() as rec:
+            profiling.count("score.renders.coarse", 5)        # as a capture counts
+            profiling.count("score.renders.full", 2)
         assert t.counters == before == {"init.steps": 1}
         assert rec == {"score.renders.coarse": 5, "score.renders.full": 2}
         for _ in range(3):                                     # three replays
-            profiling.add_counts(rec)
+            profiling.recount(rec)
         assert t.counters == {"init.steps": 1, "score.renders.coarse": 15,
                               "score.renders.full": 6}
     with _Traced(False) as t:
-        before = profiling.counters()
-        profiling.count("score.renders.coarse", 5)
-        assert before == {} and profiling.counted_since(before) == {}
-        profiling.add_counts(rec)
+        before = t.counters
+        with profiling.recording() as off:
+            profiling.count("score.renders.coarse", 5)
+        assert before == {} and off == {}
+        profiling.recount(rec)
         assert t.counters == {}
 
 
