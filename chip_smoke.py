@@ -28,7 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      one nvcc per source started together, into one library; prints
      ptxas' register and spill report;
   3. kernels, each against its plain PyTorch version on the card, timed:
-     - K1 at the tracked frame's shapes (in-scan, explorer, polish/support)
+     - K1 (which takes each particle's pose and its object's model cloud,
+       a slice of a longer one, and poses the cloud itself) at the tracked
+       frame's shapes (in-scan, explorer, polish/support)
        and the init frame's (in-scan and prescreen support: 1024 x 512 x
        512, polish: 17 x 2048 x 1024), shared and per-particle queries,
        plus a ragged case; at the same places of a library sweep of 8
@@ -41,8 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
        shapes (GATE_SHAPES); then the tie cases (every reference point duplicated across
        the ranges a block's thread groups split the cloud into), ungrouped
        and grouped: the same indices, d2 bitwise equal, matched points and
-       normals bitwise equal (the plain version of a shape above 2^27
-       pairs runs in 8 slices of the particle axis);
+       normals bitwise equal to the clouds posed by se3 and searched dense
+       (the plain version of a shape above 2^27 pairs runs in 8 slices of
+       the particle axis), all four bitwise equal to ATen's posing followed
+       by K1 on the posed clouds, and both timed in us a launch, one CUDA
+       graph each;
      - K2 at the same shapes: the same indices, d2 bitwise equal;
      - K3 at the tracked scan (512 x 512 x 256), the explorer pulls (32 x
        512 x 256), the init scan (1024 x 512 x 512) and a ragged case, the
@@ -710,28 +715,89 @@ def _ties(r) -> None:
         r[:, -1] = r[:, h - 1]
 
 
+def _poses(gen, lead: tuple, dev):
+    """Poses of shape lead + (4, 4) that carry a model cloud about the
+    origin into the query clouds of `_cloud`: rotations of up to ~1 rad,
+    translations of 5 cm about (0, 0, 0.5)."""
+    import torch
+
+    from icra20_hand_object_pose_tpu_torch.utils import se3
+
+    w = 0.6 * torch.randn(lead + (3,), generator=gen, device=dev)
+    t = (torch.rand(lead + (3,), generator=gen, device=dev) - 0.5) * 0.1
+    t[..., 2] += 0.5
+    return se3.make_pose(se3.so3_exp(w), t).contiguous()
+
+
+def k1_inputs(gen, dev, P, Pq, Ns, Nm, ties=False):
+    """K1's inputs at (P, Pq, Ns, Nm): queries [Pq,Ns,3] (every 17th a
+    scene padding row), poses, and model clouds and normals in the model
+    frame, each object's a slice of a cloud of Nm + 8 points (the sweep's
+    `[:, :km]`: an object stride). A query per group of particles (1 < Pq <
+    P) is a library of Pq objects: poses [Pq,P/Pq,4,4], clouds [Pq,Nm,3];
+    else one object, poses [P,4,4] and clouds [1,Nm,3]."""
+    import torch
+
+    O = Pq if 1 < Pq < P else 1
+    q = _cloud(gen, (Pq, Ns, 3), dev)
+    q[:, ::17] = 1e6                      # scene padding rows
+    m = _cloud(gen, (O, Nm + 8, 3), dev, scale=0.1, centre=0.0)[:, :Nm]
+    if ties:
+        _ties(m)
+    n = torch.nn.functional.normalize(
+        torch.randn((O, Nm + 8, 3), generator=gen, device=dev), dim=-1)[:, :Nm]
+    return q, _poses(gen, (P,) if O == 1 else (O, P // O), dev), m, n
+
+
+def aten_posed(poses, m, n):
+    """The clouds and normals [P,Nm,3] of K1's inputs posed in ATen, by
+    se3.transform_points / rotate_vectors as the ICP posed them before K1
+    took the poses (33 kernels a call)."""
+    from icra20_hand_object_pose_tpu_torch.utils import se3
+
+    if poses.dim() == 4:
+        m, n = m[:, None], n[:, None]
+    return tuple(t.reshape((-1,) + tuple(t.shape[-2:]))
+                 for t in (se3.transform_points(poses, m), se3.rotate_vectors(poses, n)))
+
+
 def nn_case(knn_cuda, gen, dev, gather: bool, P, Pq, Ns, Nm, ties=False, plan=None):
     """One K1 (gather) or K2 case against its plain version: indices equal
     everywhere and d2 bitwise equal (K1: the matched points and normals
-    too). Returns (run, plain, max |d2 err|)."""
+    too). K1 takes the poses and the model clouds; its plain version is the
+    clouds posed in ATen (`aten_posed`) and searched dense, and so is its
+    `chain`, the route before K1 took the poses: ATen's posing, then K1 on
+    the posed clouds (each its own object under an identity pose, which
+    leaves every float as it is), whose results must be bitwise the posed
+    K1's. Returns (run, plain, max |d2 err|, chain or None)."""
     import torch
 
     tag = "K1" if gather else "K2"
-    q = _cloud(gen, (Pq, Ns, 3), dev)
-    q[:, ::17] = 1e6                      # scene padding rows
-    r = _cloud(gen, (P, Nm, 3), dev)
-    if ties:
-        _ties(r)
     where = f"P={P} Pq={Pq} Ns={Ns} Nm={Nm}{' ties' if ties else ''} {plan or ''}"
     n_sl = plain_slices(P, Pq, Ns, Nm)
+    chain = None
     if gather:
-        n = torch.nn.functional.normalize(
-            torch.randn((P, Nm, 3), generator=gen, device=dev), dim=-1)
-        run = lambda: knn_cuda.nn_gather_batched(q, r, n, **_plan_kw(plan))
-        plain = lambda: in_slices(knn_cuda.nn_gather_plain, (q,), (r, n), n_sl)
-        m, nm, d2, idx = run()
+        q, poses, model, model_n = k1_inputs(gen, dev, P, Pq, Ns, Nm, ties)
+        r, rn = aten_posed(poses, model, model_n)
+        eye = torch.eye(4, device=dev).expand(P, 1, 4, 4).contiguous()
+        run = lambda: knn_cuda.nn_gather_batched(q, poses, model, model_n, **_plan_kw(plan))
+        plain = lambda: in_slices(knn_cuda.nn_gather_plain, (q,), (r, rn), n_sl)
+        chain = lambda: knn_cuda.nn_gather_batched(
+            q, eye, *aten_posed(poses, model, model_n), **_plan_kw(plan))
+
+        def folded(out):                  # on the leading axes [P]
+            return tuple(t.reshape((P,) + tuple(t.shape[out[2].dim() - 1:])) for t in out)
+
+        m, nm, d2, idx = folded(run())
         mp, nmp, d2p, idxp = plain()
+        check(all(torch.equal(a, b) for a, b in zip((m, nm, d2, idx), folded(chain()))),
+              f"K1 posed differs from ATen posing + K1 at {where}")
     else:
+        q = _cloud(gen, (Pq, Ns, 3), dev)
+        q[:, ::17] = 1e6                  # scene padding rows
+        r = _cloud(gen, (P, Nm, 3), dev)
+        if ties:
+            _ties(r)
         run = lambda: knn_cuda.nn_batched(q, r, **_plan_kw(plan))
         plain = lambda: in_slices(knn_cuda.nn_plain, (q,), (r,), n_sl)
         idx, d2 = run()
@@ -744,8 +810,9 @@ def nn_case(knn_cuda, gen, dev, gather: bool, P, Pq, Ns, Nm, ties=False, plan=No
     if gather:
         check(bool(torch.equal(m, mp) and torch.equal(nm, nmp)),
               f"K1 matched point/normal differ at {where}")
-    print(f"{tag} {where}: idx agree {agree:.6f}, max|d2 err| {err:.3e}", flush=True)
-    return run, plain, err
+    print(f"{tag} {where}: idx agree {agree:.6f}, max|d2 err| {err:.3e}"
+          f"{', bitwise ATen posing + K1' if gather else ''}", flush=True)
+    return run, plain, err, chain
 
 
 def nn_phase(knn_cuda, dev, gather: bool, grouped: bool = True) -> dict:
@@ -763,12 +830,19 @@ def nn_phase(knn_cuda, dev, gather: bool, grouped: bool = True) -> dict:
     # (a shape on two lists runs once)
     for P, Pq, Ns, Nm in dict.fromkeys(cases + (NN_GROUPED + SHARD_SHAPES + GATE_SHAPES
                                                 if grouped else [])):
-        run, plain, err = nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm)
+        run, plain, err, chain = nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm)
         max_err = max(max_err, err)
-        t = timings(run, plain, 50 if P * Ns * Nm < 1e8 else 20)
+        reps = 50 if P * Ns * Nm < 1e8 else 20
+        t = timings(run, plain, reps)
         b_ms, b_by = nn_bound(P, Pq, Ns, Nm, gather)
-        report(tag, f"P={P} Pq={Pq} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'nn_plan', P, Ns, Nm)}",
-               t, b_ms, b_by, P * Ns * Nm)
+        where = f"P={P} Pq={Pq} Ns={Ns} Nm={Nm} {_plan_of(knn_cuda, 'nn_plan', P, Ns, Nm)}"
+        report(tag, where, t, b_ms, b_by, P * Ns * Nm)
+        if chain is not None:   # K1 against the route before it took the poses
+            t.update(chain_ms=graph_ms(chain, reps),
+                     chain_kernels_per_call=len(kernel_names(chain)))
+            print(f"K1 {where}: posed {1e3 * t['ms']:.2f} us/launch, ATen posing + K1 "
+                  f"{1e3 * t['chain_ms']:.2f} us ({t['chain_kernels_per_call']} kernel "
+                  f"name(s)/call), saved {1e3 * (t['chain_ms'] - t['ms']):.2f} us", flush=True)
         res[(P, Pq, Ns, Nm)] = dict(t, bound_ms=b_ms, bound_by=b_by)
     for P, Pq, Ns, Nm in TIE_SHAPES if grouped else TIE_SHAPES[:2]:
         max_err = max(max_err, nn_case(knn_cuda, gen, dev, gather, P, Pq, Ns, Nm,
@@ -1276,8 +1350,8 @@ def sweep_phase(knn_cuda, dev) -> None:
                 for groups in (1, 2, 4):
                     for width in (64, W):
                         plan = P_(q, groups, 1, width)
-                        run, _, _ = nn_case(knn_cuda, gen, dev, gather, P, 1, Ns, Nm,
-                                            ties=True, plan=plan)
+                        run = nn_case(knn_cuda, gen, dev, gather, P, 1, Ns, Nm,
+                                      ties=True, plan=plan)[0]
                         timed(f"{'K1' if gather else 'K2'} P={P} Ns={Ns} Nm={Nm}", run,
                               plan, chosen)
     for P, Ns, Nm in GN_SHAPES[:3]:

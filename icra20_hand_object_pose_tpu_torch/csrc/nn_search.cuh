@@ -37,6 +37,13 @@
 //     group order, lexicographically: the first minimal index still wins,
 //     with no atomics and no second launch.
 //
+// Posing (K1 only, a compile-time switch of the functions below): the
+// reference cloud comes in the model frame with the particle's pose, and each
+// point is posed where it is read, as the tile is staged and where a match
+// or a resolve reads the global cloud, with the arithmetic and rounding of
+// se3.transform_points / rotate_vectors: the posed floats are bitwise
+// theirs, and no [P, Nm, 3] posed cloud is written to device memory.
+//
 // The launch plan (Q, S, and K3's scene split) is chosen in Python
 // (ops/knn_cuda.py, `nn_plan` / `gn_plan`) and passed to the C entry points.
 
@@ -73,6 +80,39 @@ struct Lane {
 template <int W>
 __device__ __forceinline__ Lane this_lane(int S) {
   return Lane{(int)threadIdx.x / W, (int)threadIdx.x % W, S, W};
+}
+
+// A particle's pose: the first three rows of its [4, 4] matrix, row i at
+// r[4 i .. 4 i + 3] (rotation, then translation).
+struct Pose {
+  float r[12];
+};
+
+__device__ __forceinline__ Pose load_pose(const float* __restrict__ T) {
+  Pose pose;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) pose.r[i] = T[i];
+  return pose;
+}
+
+// The 3 floats at v posed into o: se3._rotate_fma's ((r0 x + r1 y) + r2 z),
+// then + t for a point (kPoint), every product and sum rounded on its own.
+// Without kPosed, a copy.
+template <bool kPosed, bool kPoint>
+__device__ __forceinline__ void read_posed(const Pose& pose, const float* v, float (&o)[3]) {
+  const float x = v[0], y = v[1], z = v[2];
+  if constexpr (!kPosed) {
+    o[0] = x, o[1] = y, o[2] = z;
+    return;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float* r = pose.r + 4 * i;
+      const float rv = __fadd_rn(__fadd_rn(__fmul_rn(r[0], x), __fmul_rn(r[1], y)),
+                                 __fmul_rn(r[2], z));
+      o[i] = kPoint ? __fadd_rn(rv, r[3]) : rv;
+    }
+  }
 }
 
 // Squared distance, rounded step by step as the plain version computes it.
@@ -167,15 +207,18 @@ __device__ __forceinline__ void visit_tail(const float* t, int m, int jg, const 
 
 // Resolves query k's recorded group [lo, lo + kGroup) (cut at `end`) to its
 // first point at the minimum: kGroup independent evaluations of the same
-// arithmetic on the points pts[3 (j - base) ...], then the lowest match.
-template <int Q>
+// arithmetic on the points pts[3 (j - base) ...] (posed by `pose` where
+// kPosed), then the lowest match.
+template <int Q, bool kPosed = false>
 __device__ __forceinline__ int resolve(const float* pts, int base, int lo, int end,
-                                       const Queries<Q>& q, int k, float best) {
+                                       const Queries<Q>& q, int k, float best,
+                                       const Pose& pose = Pose{}) {
   int found = lo;
 #pragma unroll
   for (int jj = kGroup - 1; jj >= 0; --jj) {
     const int j = lo + jj;
-    const float* r = pts + 3 * (max(base, min(j, end - 1)) - base);  // always a valid point
+    float r[3];  // always a valid point
+    read_posed<kPosed, true>(pose, pts + 3 * (max(base, min(j, end - 1)) - base), r);
     const bool hit = dist2(r[0], r[1], r[2], q.x[k], q.y[k], q.z[k]) == best;
     found = hit & (j < end) ? j : found;  // no branch: every load is issued
   }
@@ -204,12 +247,14 @@ inline size_t smem_bytes(int Nm, int q, int W, int S, bool normals) {
 
 // Sweeps this thread's group's range of `ref` ([Nm, 3]) for its queries and
 // resolves each query to its first minimal index in the range; stages
-// `nrm` ([Nm, 3]) beside the points when it is given. Every thread of the
-// block calls it (it syncs).
-template <int Q>
+// `nrm` ([Nm, 3]) beside the points when it is given. With kPosed, `ref`
+// and `nrm` are in the model frame and are staged (and read) posed by
+// `pose`. Every thread of the block calls it (it syncs).
+template <int Q, bool kPosed = false>
 __device__ __forceinline__ void sweep(const float* __restrict__ ref,
                                       const float* __restrict__ nrm, int Nm, const Lane& ln,
-                                      const Staging& st, const Queries<Q>& q, Best<Q>& b) {
+                                      const Staging& st, const Queries<Q>& q, Best<Q>& b,
+                                      const Pose& pose = Pose{}) {
   const int per = st.per, T = st.T;
   const int begin = min(Nm, ln.g * per);
   const int end = min(Nm, begin + per);
@@ -224,10 +269,24 @@ __device__ __forceinline__ void sweep(const float* __restrict__ ref,
     // group h's tile holds its points [t0, t0 + T): 3T consecutive floats
     for (int h = 0; h < ln.S; ++h) {
       const int j0 = min(Nm, h * per) + t0;
-      const int n = 3 * max(0, min(T, min(Nm, (h + 1) * per) - j0));
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        st.pts[3 * h * T + i] = ref[(size_t)j0 * 3 + i];
-        if (nrm != nullptr) st.nrm[3 * h * T + i] = nrm[(size_t)j0 * 3 + i];
+      const int m = max(0, min(T, min(Nm, (h + 1) * per) - j0));
+      if constexpr (kPosed) {  // a point (and its normal) a thread, posed
+        for (int i = threadIdx.x; i < m; i += blockDim.x) {
+          float v[3];
+          read_posed<true, true>(pose, ref + (size_t)(j0 + i) * 3, v);
+          float* dst = st.pts + 3 * (h * T + i);
+          dst[0] = v[0], dst[1] = v[1], dst[2] = v[2];
+          if (nrm != nullptr) {
+            read_posed<true, false>(pose, nrm + (size_t)(j0 + i) * 3, v);
+            dst = st.nrm + 3 * (h * T + i);
+            dst[0] = v[0], dst[1] = v[1], dst[2] = v[2];
+          }
+        }
+      } else {  // a float a thread
+        for (int i = threadIdx.x; i < 3 * m; i += blockDim.x) {
+          st.pts[3 * h * T + i] = ref[(size_t)j0 * 3 + i];
+          if (nrm != nullptr) st.nrm[3 * h * T + i] = nrm[(size_t)j0 * 3 + i];
+        }
       }
     }
     __syncthreads();
@@ -245,30 +304,38 @@ __device__ __forceinline__ void sweep(const float* __restrict__ ref,
     for (int k = 0; k < Q; ++k) b.idx[k] = resolve<Q>(tile, begin, b.idx[k], end, q, k, b.d2[k]);
   } else {
 #pragma unroll
-    for (int k = 0; k < Q; ++k) b.idx[k] = resolve<Q>(ref, 0, b.idx[k], end, q, k, b.d2[k]);
+    for (int k = 0; k < Q; ++k) {
+      b.idx[k] = resolve<Q, kPosed>(ref, 0, b.idx[k], end, q, k, b.d2[k], pose);
+    }
   }
 }
 
 // Reference point j and its normal: the point from the tiles when every
 // range fits one tile (it is then still staged after the sweep), else from
 // `ref`; the normal likewise from the normal tiles where they were staged,
-// else from `nrm`. The same floats either way.
+// else from `nrm`. What is read from `ref` or `nrm` is posed by `pose`
+// where kPosed, as the tiles were. The same floats either way.
+template <bool kPosed = false>
 __device__ __forceinline__ void fetch_match(const Staging& st, const float* __restrict__ ref,
                                             const float* __restrict__ nrm, int j,
-                                            float (&m)[3], float (&n)[3]) {
-  const float* pm = ref + (size_t)j * 3;
-  const float* pn = nrm + (size_t)j * 3;
+                                            float (&m)[3], float (&n)[3],
+                                            const Pose& pose = Pose{}) {
+  const float* staged_n = nullptr;
   if (st.per <= st.T) {
     int h = 0;  // j's group, without a division (S <= kMaxGroups)
 #pragma unroll
     for (int o = 1; o < kMaxGroups; ++o) h += j >= o * st.per ? 1 : 0;
     const int at = 3 * (h * st.T + j - h * st.per);
     m[0] = st.pts[at], m[1] = st.pts[at + 1], m[2] = st.pts[at + 2];
-    if (st.nrm != nullptr) pn = st.nrm + at;
+    if (st.nrm != nullptr) staged_n = st.nrm + at;
   } else {
-    m[0] = pm[0], m[1] = pm[1], m[2] = pm[2];
+    read_posed<kPosed, true>(pose, ref + (size_t)j * 3, m);
   }
-  n[0] = pn[0], n[1] = pn[1], n[2] = pn[2];
+  if (staged_n != nullptr) {
+    n[0] = staged_n[0], n[1] = staged_n[1], n[2] = staged_n[2];
+  } else {
+    read_posed<kPosed, false>(pose, nrm + (size_t)j * 3, n);
+  }
 }
 
 // Merges the (d2, idx) of groups 1..S-1 into group 0's `b`, in group order,

@@ -5,8 +5,10 @@ ops/icp.py).
 to the posed model cloud of every particle, then left-multiplies each pose
 by exp(xi) about the weighted scene centroid. The iteration count is fixed
 and converged particles freeze, as in the reference. Correspondences come
-from `corr_fn` (kernel K1, ops/knn_cuda.make_corr_fn), from `nn_fn` (kernel
-K2, make_nn_fn) followed by an indexed gather, or from the dense oracle;
+from `corr_fn` (kernel K1, ops/knn_cuda.make_corr_fn, which takes the poses
+and the model cloud and poses it itself), from `nn_fn` (kernel K2,
+make_nn_fn) on clouds posed here, followed by an indexed gather, or from
+the dense oracle;
 `gn_fn` (kernel K3, make_gn_fn) fuses the search with the gates and the
 normal-equation build. Everything between one search and the next (the
 gates, the `gn_reps` solves, the pose updates) is `gn_iterate_plain`, which
@@ -211,8 +213,9 @@ def icp_batched(
 
     Correspondences, first given wins; each callback is handed the library
     form (O = 1 for a single object) and returns tensors on [O,P] axes:
-    - corr_fn(scene [1|O,Ns,3], posed [O,P,Nm,3], posed_normals
-      [O,P,Nm,3]) -> (matched, mnormal, d2, idx);
+    - corr_fn(scene [1|O,Ns,3], poses [O,P,4,4], model_pts [O,Nm,3],
+      model_normals [O,Nm,3]) -> (matched, mnormal, d2, idx), the model
+      posed by each pose;
     - nn_fn(scene [1|O,Ns,3], posed [O,P,Nm,3]) -> (idx, d2), then a gather;
     - default: the dense oracle.
     gn_fn(scene_c [O,Ns,3], scene_normals, scene_w [O,Ns], posed_c
@@ -233,11 +236,15 @@ def icp_batched(
     return poses[0], IcpStats(*(a[0] for a in stats))
 
 
-def _search(scene_pts, posed, mnorm_all, nn_fn, corr_fn):
-    """(matched, mnormal, d2) of scene [1|O,Ns,3] in posed [O,P,Nm,3]."""
+def _search(scene_pts, poses, model_pts, model_normals, nn_fn, corr_fn):
+    """(matched, mnormal, d2) of scene [1|O,Ns,3] in the model [O,Nm,3]
+    posed by poses [O,P,4,4]: corr_fn poses it itself, the others search
+    it posed here."""
     if corr_fn is not None:
-        matched, mnorm, d2, _ = corr_fn(scene_pts, posed, mnorm_all)
+        matched, mnorm, d2, _ = corr_fn(scene_pts, poses, model_pts, model_normals)
         return matched, mnorm, d2
+    posed = se3.transform_points(poses, model_pts[:, None])      # [O,P,Nm,3]
+    mnorm_all = se3.rotate_vectors(poses, model_normals[:, None])
     if nn_fn is not None:
         idx, d2 = nn_fn(scene_pts, posed)                         # [O,P,Ns]
     else:
@@ -283,9 +290,8 @@ def _icp_objects(poses0, scene_pts, scene_normals, scene_weights, model_pts,
     frozen = torch.zeros(poses0.shape[:2], dtype=torch.bool, device=poses0.device)
     stats = IcpStats(rmse=None, inliers=None, converged=frozen, support=None)
     for _ in range(iters):
-        posed = se3.transform_points(poses, model_pts[:, None])   # [O,P,Nm,3]
-        mnorm_all = se3.rotate_vectors(poses, model_normals[:, None])
-        matched, mnorm, d2 = _search(scene_pts, posed, mnorm_all, nn_fn, corr_fn)
+        matched, mnorm, d2 = _search(scene_pts, poses, model_pts, model_normals, nn_fn,
+                                     corr_fn)
         poses, stats = gn_iterate_batched(
             poses, stats.converged, matched, mnorm, d2, scene_c, scene_normals,
             scene_weights, anchor, wsum, max_corresp_dist=max_corresp_dist,
@@ -359,14 +365,12 @@ def scene_support(
     [O,P,4,4], scene [1|O,Ns,3], weights [O,Ns], model [O,Nm,3] -> [O,P]."""
     lifted, poses, scene_pts, scene_weights, model_pts, model_normals = _lift(
         poses, scene_pts, scene_weights, model_pts, model_normals)
-    posed = se3.transform_points(poses, model_pts[:, None])
     if corr_fn is not None:
-        _, _, d2, _ = corr_fn(scene_pts, posed,
-                              se3.rotate_vectors(poses, model_normals[:, None]))
-    elif nn_fn is not None:
-        _, d2 = nn_fn(scene_pts, posed)
+        _, _, d2, _ = corr_fn(scene_pts, poses, model_pts, model_normals)
     else:
-        _, d2 = knn.nn(scene_pts[:, None], posed)
+        posed = se3.transform_points(poses, model_pts[:, None])
+        _, d2 = (nn_fn(scene_pts, posed) if nn_fn is not None
+                 else knn.nn(scene_pts[:, None], posed))
     hit = (d2 < tau * tau).to(d2.dtype)
     wsum = torch.clamp(torch.sum(scene_weights, dim=-1), min=1e-9)
     out = torch.sum(hit * scene_weights[:, None], dim=-1) / wsum[:, None]

@@ -4,8 +4,10 @@ the scoring kernels K5 and K6, each beside its plain version.
 Counterparts of `icra20_hand_object_pose_tpu/ops/knn_pallas.py`:
 
   - K1 `nn_gather_batched` (`make_corr_fn`): for each particle p and query
-    point s, the nearest reference point by exact FP32 squared distance, its
-    first minimal index, and the matched point and normal at that index;
+    point s, the nearest point of its object's model cloud posed by its pose,
+    by exact FP32 squared distance, its first minimal index, and the matched
+    point and normal (posed) at that index; the kernel poses the cloud
+    itself, bitwise as `se3.transform_points` / `rotate_vectors` do;
   - K2 `nn_batched` (`make_nn_fn`): the same search without the gather;
   - K3 `nn_gn_batched` (`make_gn_fn`): the K1 search of an anchored scene
     against anchored posed model clouds, the correspondence gates of
@@ -42,7 +44,8 @@ The query of K1/K2 and the scene of K3 come in B blocks, B any divisor of
 the particle count P: particle p takes block p // (P // B). B = 1 is one
 scene for every particle, B = P one per particle, and anything between one
 scene per group of particles: a library of O objects with P/O particles
-each, searched in one launch (parallel/sharding.py).
+each, searched in one launch (parallel/sharding.py). K1's model clouds come
+likewise, one for all particles or one per object of [O,P] poses.
 
 Each wrapper picks by device: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise. There is no fallback from one to the
@@ -288,8 +291,9 @@ def _kernel(name: str, symbol: str, *runs) -> Kernel:
 
 
 K1 = _kernel("nn_gather_batched", "nn_gather_launch",
-             (PTR, "query ref_pts ref_nrm matched mnormal d2 idx"),
-             (INT, "P Pq Ns Nm q width S"))
+             (PTR, "query poses model_pts model_nrm matched mnormal d2 idx"),
+             (LONG, "obj_stride"),
+             (INT, "P Pq Ns Nm pts_div q width S"))
 K2 = _kernel("nn_batched", "nn_launch",
              (PTR, "query ref_pts d2 idx"),
              (INT, "P Pq Ns Nm q width S"))
@@ -416,38 +420,61 @@ def _batched_shapes(query: torch.Tensor, ref: torch.Tensor):
 
 
 def nn_gather_batched(
-    query: torch.Tensor,        # [Pq, Ns, 3] float32, Pq a divisor of P
-    ref_pts: torch.Tensor,      # [P, Nm, 3] float32
-    ref_normals: torch.Tensor,  # [P, Nm, 3] float32
+    query: torch.Tensor,          # [Pq, Ns, 3] float32, Pq a divisor of P
+    poses: torch.Tensor,          # [P,4,4] float32, or [O,P,4,4] for a library
+    model_pts: torch.Tensor,      # [Nm,3], or [1|O,Nm,3]: model frame
+    model_normals: torch.Tensor,  # as model_pts
     *,
     plan: Plan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1, fused NN + correspondence gather: returns
-    (matched [P,Ns,3], mnormal [P,Ns,3], d2 [P,Ns], idx [P,Ns] int32).
+    """K1, posing + NN + correspondence gather: each particle's pose applied
+    to its object's model cloud and normals, then searched. Returns (matched
+    [...,Ns,3], mnormal [...,Ns,3], d2 [...,Ns], idx [...,Ns] int32) over
+    the leading axes of `poses`.
 
     A query with leading dim 1 is shared by every particle (the ICP case:
-    one scene, P posed models); with leading dim Pq, particle p searches
-    query p // (P // Pq) (a library: Pq scenes, P / Pq posed models each).
-    CPU tensors take `nn_gather_plain`; CUDA
-    tensors launch the kernel with `plan` (default `nn_plan` of the
-    shapes)."""
-    Pq, Ns, P, Nm = _batched_shapes(query, ref_pts)
-    device = ref_pts.device
-    if not _route("K1", device, P=P, Ns=Ns, Nm=Nm):
-        return nn_gather_plain(query, ref_pts, ref_normals)
+    one scene, P poses); with leading dim Pq, particle p of the P (folded)
+    searches query p // (P // Pq) (a library: one scene per object). With
+    [O,P,4,4] poses, object o's particles take model cloud o (each cloud
+    contiguous, the clouds at any stride: a slice of the points is read
+    where it lies). CPU tensors take se3's posing and `nn_gather_plain`;
+    CUDA tensors launch the kernel once with `plan` (default `nn_plan` of
+    the folded shapes)."""
+    lead = tuple(poses.shape[:-2])
+    rows = math.prod(lead)
+    if query.dim() != 3 or len(lead) not in (1, 2):
+        raise ValueError("query must be [B, N, 3] and poses [P,4,4] or [O,P,4,4]")
+    Pq, Ns, Nm = query.shape[0], query.shape[1], model_pts.shape[-2]
+    if Pq < 1 or rows % Pq:
+        raise ValueError(f"query batch {Pq} does not divide ref batch {rows}")
+    device = poses.device
+    if not _route("K1", device, P=rows, Ns=Ns, Nm=Nm):
+        if len(lead) == 2 and model_pts.dim() == 3:   # each object's cloud beside its particles
+            model_pts, model_normals = model_pts[:, None], model_normals[:, None]
+        posed = se3.transform_points(poses, model_pts)
+        posed_normals = se3.rotate_vectors(poses, model_normals)
+        return _unfold(nn_gather_plain(query, _fold(posed), _fold(posed_normals)), poses)
+    pts, n_obj, obj_stride = _object_rows(model_pts, 2, lead, "model_pts")
+    nrm, n_nrm, nrm_stride = _object_rows(model_normals, 2, lead, "model_normals")
+    if (n_nrm, nrm_stride) != (n_obj, obj_stride):
+        pts, nrm = pts.contiguous(), nrm.contiguous()
+        obj_stride = pts.stride(0) if n_obj > 1 else 0
+    query, poses = query.contiguous(), poses.contiguous()
     f32 = torch.float32
     _check(device, ("query", query, (Pq, Ns, 3), f32),
-           ("ref_pts", ref_pts, (P, Nm, 3), f32),
-           ("ref_normals", ref_normals, (P, Nm, 3), f32))
-    plan = plan or nn_plan(P, Ns, Nm)
-    matched = torch.empty((P, Ns, 3), dtype=f32, device=device)
-    mnormal = torch.empty((P, Ns, 3), dtype=f32, device=device)
-    d2 = torch.empty((P, Ns), dtype=f32, device=device)
-    idx = torch.empty((P, Ns), dtype=torch.int32, device=device)
-    launch(K1, device, (P, Pq, Ns, Nm), query=query, ref_pts=ref_pts, ref_nrm=ref_normals,
-           matched=matched, mnormal=mnormal, d2=d2, idx=idx, P=P, Pq=Pq, Ns=Ns, Nm=Nm,
+           ("poses", poses, lead + (4, 4), f32),
+           ("model_pts", pts[0], (Nm, 3), f32),
+           ("model_normals", nrm[0], (Nm, 3), f32))
+    plan = plan or nn_plan(rows, Ns, Nm)
+    matched = torch.empty((rows, Ns, 3), dtype=f32, device=device)
+    mnormal = torch.empty((rows, Ns, 3), dtype=f32, device=device)
+    d2 = torch.empty((rows, Ns), dtype=f32, device=device)
+    idx = torch.empty((rows, Ns), dtype=torch.int32, device=device)
+    launch(K1, device, (rows, Pq, Ns, Nm), query=query, poses=poses, model_pts=pts,
+           model_nrm=nrm, matched=matched, mnormal=mnormal, d2=d2, idx=idx,
+           obj_stride=obj_stride, P=rows, Pq=Pq, Ns=Ns, Nm=Nm, pts_div=rows // n_obj,
            q=plan.q, width=plan.width, S=plan.groups)
-    return matched, mnormal, d2, idx
+    return _unfold((matched, mnormal, d2, idx), poses)
 
 
 def nn_batched(
@@ -883,23 +910,25 @@ def _fold(t: torch.Tensor) -> torch.Tensor:
 
 def _unfold(outs: tuple, like: torch.Tensor) -> tuple:
     """The kernels' [O*P,...] outputs back on the leading axes of `like`
-    ([O,P,N,3]; a [P,N,3] `like` leaves them as they are)."""
+    ([O,P,N,3] clouds or [O,P,4,4] poses; a [P,N,3] or [P,4,4] `like`
+    leaves them as they are)."""
     if like.dim() == 3:
         return outs
     return tuple(t.reshape(tuple(like.shape[:2]) + tuple(t.shape[1:])) for t in outs)
 
 
 def make_corr_fn():
-    """A `corr_fn(scene, posed_pts, posed_normals) -> (matched, mnormal, d2,
-    idx)` drop-in for ops/icp.py, backed by K1. Takes scene [Ns,3] (shared)
-    or [Pq,Ns,3] with posed [P,Nm,3], and, for a library, scene [1|O,Ns,3]
-    with posed [O,P,Nm,3]: object o's particles search scene o in the same
-    launch, and the outputs keep the [O,P] axes."""
+    """A `corr_fn(scene, poses, model_pts, model_normals) -> (matched,
+    mnormal, d2, idx)` drop-in for ops/icp.py, backed by K1: the model
+    cloud posed by each pose and searched in one launch. Takes scene [Ns,3]
+    (shared) or [Pq,Ns,3] with poses [P,4,4] and a model [Nm,3], and, for
+    a library, scene [1|O,Ns,3] with poses [O,P,4,4] and models [O,Nm,3]:
+    object o's particles search scene o in the same launch, and the outputs
+    keep the [O,P] axes."""
 
-    def corr_fn(scene_pts, posed_pts, posed_normals):
+    def corr_fn(scene_pts, poses, model_pts, model_normals):
         q = scene_pts[None] if scene_pts.dim() == 2 else scene_pts
-        return _unfold(nn_gather_batched(
-            q.contiguous(), _fold(posed_pts), _fold(posed_normals)), posed_pts)
+        return nn_gather_batched(q, poses, model_pts, model_normals)
 
     return corr_fn
 

@@ -2,8 +2,11 @@
 PyTorch version against the JAX package's Pallas kernel (interpret mode, as
 tests/test_knn_pallas.py runs it) and dense oracle, at that file's
 tolerances: d2 rtol 1e-3 / atol 1e-7, matched points 5e-6 (the Pallas
-gather is double-bf16), normals 5e-4. The CUDA kernel itself is checked
-against the plain version in test_torch_knn_cuda.py, on the card."""
+gather is double-bf16), normals 5e-4. K1 takes the poses and the model
+cloud; the Pallas kernel and the oracle take the clouds posed by
+`se3.transform_points` / `rotate_vectors`. The CUDA kernel itself is
+checked against the plain version in test_torch_knn_cuda.py, on the
+card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import torch
 from icra20_hand_object_pose_tpu.ops import knn as jknn
 from icra20_hand_object_pose_tpu.ops import knn_pallas
 from icra20_hand_object_pose_tpu_torch.ops import knn, knn_cuda
+from icra20_hand_object_pose_tpu_torch.utils import se3
 
 torch.set_num_threads(2)
 
@@ -24,6 +28,19 @@ def _clouds(Pq, P, Ns, Nm, seed=0):
     return q, r, n / np.linalg.norm(n, axis=-1, keepdims=True)
 
 
+def _posed(P, Nm, seed=0):
+    """P poses [P,4,4] (rotations of up to ~1 rad, translations of 10 cm),
+    a model cloud and its normals [Nm,3], and the cloud and normals posed
+    by each pose [P,Nm,3] (numpy)."""
+    g = np.random.default_rng(seed)
+    w = torch.tensor(g.normal(scale=0.6, size=(P, 3)), dtype=torch.float32)
+    t = torch.tensor(g.uniform(-0.1, 0.1, (P, 3)), dtype=torch.float32)
+    poses = se3.make_pose(se3.so3_exp(w), t)
+    _, m, mn = (torch.tensor(a[0]) for a in _clouds(1, 1, 1, Nm, seed=seed + 1))
+    return (poses, m, mn, se3.transform_points(poses, m).numpy(),
+            se3.rotate_vectors(poses, mn).numpy())
+
+
 @pytest.mark.parametrize("Pq,P,Ns,Nm", [
     (1, 3, 40, 70),     # shared query
     (3, 3, 40, 70),     # per-particle query
@@ -31,12 +48,12 @@ def _clouds(Pq, P, Ns, Nm, seed=0):
     (2, 2, 100, 200),   # ragged over several tiles
 ])
 def test_plain_k1_matches_pallas_and_dense(Pq, P, Ns, Nm):
-    q, r, n = _clouds(Pq, P, Ns, Nm, seed=Ns + Nm)
+    q = _clouds(Pq, P, Ns, Nm, seed=Ns + Nm)[0]
+    poses, model, model_n, r, n = _posed(P, Nm, seed=Ns + Nm)
     mj, nj, d2j, _ = knn_pallas.nn_gather_batched(
         jnp.asarray(q), jnp.asarray(r), jnp.asarray(n),
         tile_s=64, tile_m=64, interpret=True)
-    m, nm, d2, idx = knn_cuda.nn_gather_batched(
-        torch.tensor(q), torch.tensor(r), torch.tensor(n))
+    m, nm, d2, idx = knn_cuda.nn_gather_batched(torch.tensor(q), poses, model, model_n)
     assert idx.dtype == torch.int32 and int(idx.max()) < Nm
     np.testing.assert_allclose(d2.numpy(), np.asarray(d2j), rtol=1e-3, atol=1e-7)
     np.testing.assert_allclose(m.numpy(), np.asarray(mj), atol=5e-6)
@@ -75,16 +92,17 @@ def test_first_minimal_index_and_far_padding():
     r = torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0],
                        [1.0, 1.0, 1.0]]])
     n = torch.eye(3)[[0, 1, 2, 0]][None]
-    m, nm, d2, idx = knn_cuda.nn_gather_batched(q, r, n)
+    m, nm, d2, idx = knn_cuda.nn_gather_batched(q, torch.eye(4)[None], r, n)
     assert idx.tolist() == [[0, 3]]
     assert torch.isfinite(d2).all() and float(d2[0, 0]) == 1.0
     np.testing.assert_array_equal(m[0, 1].numpy(), [1.0, 1.0, 1.0])
 
 
 def test_wrapper_rejects_bad_batches():
-    q, r, n = _clouds(2, 3, 10, 20)
+    q = torch.tensor(_clouds(2, 3, 10, 20)[0])
+    poses, m, mn, _, _ = _posed(3, 20)
     with pytest.raises(ValueError):
-        knn_cuda.nn_gather_batched(torch.tensor(q), torch.tensor(r), torch.tensor(n))
+        knn_cuda.nn_gather_batched(q, poses, m, mn)
     corr = knn_cuda.make_corr_fn()
-    out = corr(torch.tensor(q[0]), torch.tensor(r), torch.tensor(n))
+    out = corr(q[0], poses, m, mn)
     assert out[0].shape == (3, 10, 3) and out[2].shape == (3, 10)

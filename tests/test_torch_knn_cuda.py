@@ -1,9 +1,14 @@
 """Kernels K1, K2 and K3 on the card, each against its plain PyTorch version
 at the shapes the port's paths give it, plus a ragged case.
 
-- K1: the same indices and bitwise-equal d2 (both compute the same FP32
-  operations and keep the first minimal index), and bitwise-equal matched
-  points and normals.
+- K1, which takes each particle's pose and its object's model cloud and
+  poses the cloud itself: against `se3.transform_points` /
+  `rotate_vectors` on the card followed by the plain version (the route
+  that posed the clouds in ATen before the search), the same indices and
+  bitwise-equal d2 (both compute the same FP32 operations and keep the
+  first minimal index), and bitwise-equal matched points and normals. The
+  library cases read each object's cloud from a slice of a longer one (an
+  object stride).
 - K2: the same indices and bitwise-equal d2.
 
 Beyond the main-path shapes, the cases cover ties placed across the ranges
@@ -17,9 +22,11 @@ particles, at a library sweep's shapes (8 objects) and at ragged ones.
   entry of that particle (the sums run in other orders); wsum and hits
   within 1e-5 relative.
 
-The cases are marked `cuda` and skip without a CUDA device. This file
-imports neither jax nor the JAX package, so it also runs where only the
-port is installed:
+The cases are marked `cuda` and skip without a CUDA device; the CPU cases
+at the end hold the wrappers' CPU routes, K1's `corr_fn` and the ICP that
+calls it to the route that posed the clouds with se3 first, bitwise. This
+file imports neither jax nor the JAX package, so it also runs where only
+the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_knn_cuda.py
 """
@@ -29,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from icra20_hand_object_pose_tpu_torch.ops import knn_cuda
+from icra20_hand_object_pose_tpu_torch.ops import icp, knn_cuda
+from icra20_hand_object_pose_tpu_torch.utils import se3
 
 
 @pytest.fixture
@@ -53,6 +61,39 @@ def _clouds(Pq, P, Ns, Nm, seed=0, ties=False):
     r = g.uniform(-0.3, 0.3, (P, Nm, 3)).astype(np.float32)
     n = g.normal(size=(P, Nm, 3)).astype(np.float32)
     return q, _ties(r) if ties else r, n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+
+def _poses(lead, seed):
+    """Poses of shape lead + (4, 4): rotations of up to ~1 rad, translations
+    of 10 cm."""
+    g = np.random.default_rng(seed)
+    w = torch.tensor(g.normal(scale=0.6, size=lead + (3,)), dtype=torch.float32)
+    t = torch.tensor(g.uniform(-0.1, 0.1, lead + (3,)), dtype=torch.float32)
+    return se3.make_pose(se3.so3_exp(w), t)
+
+
+def _k1_inputs(Pq, P, Ns, Nm, O=1, seed=0, ties=False, device="cpu"):
+    """K1's inputs: queries [Pq,Ns,3], poses [P,4,4] (O == 1) or
+    [O,P/O,4,4], and model clouds and normals [Nm,3] or [O,Nm,3], each
+    object's a slice of a cloud of Nm + 5 points (the sweep's `[:, :km]`)."""
+    q, r, n = (torch.tensor(a) for a in _clouds(Pq, O, Ns, Nm + 5, seed=seed))
+    if ties:
+        _ties(r[:, :Nm])
+    poses = _poses((P,) if O == 1 else (O, P // O), seed + 1)
+    m, mn = r[:, :Nm], n[:, :Nm]
+    if O == 1:
+        m, mn = m[0], mn[0]
+    return tuple(t.to(device) for t in (q, poses, m, mn))
+
+
+def _posed_route(query, poses, model, normals):
+    """The route K1 replaced: the clouds posed by se3, then the plain K1, on
+    the leading axes of `poses`."""
+    if poses.dim() == 4 and model.dim() == 3:
+        model, normals = model[:, None], normals[:, None]
+    return knn_cuda._unfold(knn_cuda.nn_gather_plain(
+        query, knn_cuda._fold(se3.transform_points(poses, model)),
+        knn_cuda._fold(se3.rotate_vectors(poses, normals))), poses)
 
 
 def _plan(q, groups, scene_split=1, width=knn_cuda.WIDTH):
@@ -81,11 +122,12 @@ NN_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("Pq,P,Ns,Nm,ties,plan", NN_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, Pq, P, Ns, Nm, ties, plan):
-    q, r, n = (torch.tensor(a, device=cuda_device)
-               for a in _clouds(Pq, P, Ns, Nm, ties=ties))
+    # a query per group of particles is a library: one object per query
+    O = Pq if 1 < Pq < P else 1
+    args = _k1_inputs(Pq, P, Ns, Nm, O, ties=ties, device=cuda_device)
     before, before_shapes = knn_cuda.launch_counts()["nn_gather_batched"]
-    m, nm, d2, idx = knn_cuda.nn_gather_batched(q, r, n, plan=plan)
-    mp, nmp, d2p, idxp = knn_cuda.nn_gather_plain(q, r, n)
+    m, nm, d2, idx = knn_cuda.nn_gather_batched(*args, plan=plan)
+    mp, nmp, d2p, idxp = _posed_route(*args)
     torch.cuda.synchronize()
     launches, shapes = knn_cuda.launch_counts()["nn_gather_batched"]
     assert launches == before + 1
@@ -96,13 +138,15 @@ def test_cuda_kernel_matches_plain(cuda_device, Pq, P, Ns, Nm, ties, plan):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
-    q, r, n = (torch.tensor(a, device=cuda_device) for a in _clouds(1, 2, 8, 16))
+    q, poses, m, n = _k1_inputs(1, 2, 8, 16, device=cuda_device)
     with pytest.raises(TypeError):
-        knn_cuda.nn_gather_batched(q.double(), r, n)
+        knn_cuda.nn_gather_batched(q.double(), poses, m, n)
     with pytest.raises(ValueError):
-        knn_cuda.nn_gather_batched(q, r, n.cpu())
+        knn_cuda.nn_gather_batched(q, poses, m, n.cpu())
     with pytest.raises(ValueError):
-        knn_cuda.nn_gather_batched(q, r.transpose(0, 1).contiguous().transpose(0, 1), n)
+        knn_cuda.nn_gather_batched(q, poses[:, :3], m, n)
+    with pytest.raises(ValueError):     # two clouds for one object's particles
+        knn_cuda.nn_gather_batched(q, poses, m.expand(2, 16, 3), n.expand(2, 16, 3))
 
 
 @pytest.mark.cuda
@@ -191,12 +235,83 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     """On CPU tensors each wrapper returns its plain version's result, and
     `launch_counts()` does not move: it counts kernel launches only."""
     q, r, n = (torch.tensor(a) for a in _clouds(1, 3, 20, 30))
+    k1_args = _k1_inputs(1, 3, 20, 30)
     gn_args = [torch.tensor(a) for a in _gn_inputs(3, 20, 30)]
     gates = dict(maxd2=0.02 ** 2, min_cos=0.5, tau2=0.01 ** 2)
     before = knn_cuda.launch_counts()
-    out = (knn_cuda.nn_gather_batched(q, r, n) + knn_cuda.nn_batched(q, r)
+    out = (knn_cuda.nn_gather_batched(*k1_args) + knn_cuda.nn_batched(q, r)
            + knn_cuda.nn_gn_batched(*gn_args, **gates))
-    ref = (knn_cuda.nn_gather_plain(q, r, n) + knn_cuda.nn_plain(q, r)
+    ref = (_posed_route(*k1_args) + knn_cuda.nn_plain(q, r)
            + knn_cuda.nn_gn_plain(*gn_args, **gates))
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert knn_cuda.launch_counts() == before
+
+
+# (Pq, P, Ns, Nm, O, ties): one object with a shared and a per-particle
+# query, a library of 3 with a query per object and one shared, ties
+CORR_CASES = [(1, 6, 40, 70, 1, False), (6, 6, 40, 70, 1, False),
+              (3, 12, 37, 73, 3, False), (1, 12, 37, 73, 3, True)]
+
+
+@pytest.mark.parametrize("Pq,P,Ns,Nm,O,ties", CORR_CASES)
+def test_cpu_corr_fn_is_the_posed_route(Pq, P, Ns, Nm, O, ties):
+    """`make_corr_fn`'s corr_fn on the CPU, handed the poses and the model
+    cloud (a scene [Ns,3] where there is one query), gives bitwise the
+    route that posed the clouds with se3 and searched them with the plain
+    K1, on the leading axes of the poses."""
+    q, poses, m, n = _k1_inputs(Pq, P, Ns, Nm, O, seed=Ns, ties=ties)
+    out = knn_cuda.make_corr_fn()(q[0] if Pq == 1 else q, poses, m, n)
+    ref = _posed_route(q, poses, m, n)
+    assert out[0].shape == poses.shape[:-2] + (Ns, 3)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def _icp_problem(O, P, seed=3):
+    """A small ICP library: O ellipsoid-like model clouds of 200 points
+    (normals along the position) and their scenes, the first 150 points
+    posed by a ground truth with noise, and P starts per object perturbed
+    from it by up to ~3 degrees and 5 mm."""
+    g = np.random.default_rng(seed)
+    d = g.normal(size=(O, 200, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    model = torch.tensor(d * [0.05, 0.03, 0.02], dtype=torch.float32)
+    normals = torch.tensor(d, dtype=torch.float32)
+    gt = _poses((O,), seed)
+    scene = se3.transform_points(gt, model[:, :150]) + torch.tensor(
+        g.normal(scale=5e-4, size=(O, 150, 3)), dtype=torch.float32)
+    scene_n = se3.rotate_vectors(gt, normals[:, :150])
+    w = torch.ones((O, 150))
+    w[:, ::9] = 0.0
+    xi = torch.tensor(np.concatenate([g.normal(scale=0.03, size=(O, P, 3)),
+                                      g.normal(scale=0.003, size=(O, P, 3))], -1),
+                      dtype=torch.float32)
+    return se3.apply_twist(xi, gt[:, None]), scene, scene_n, w, model, normals
+
+
+def _posed_corr_fn(scene, poses, model, normals):
+    """A corr_fn by the route K1 replaced: se3's posing, then the plain K1."""
+    q = scene[None] if scene.dim() == 2 else scene
+    return _posed_route(q, poses, model, normals)
+
+
+@pytest.mark.parametrize("O,gn_reps", [(1, 1), (3, 1), (3, 2)])
+def test_cpu_icp_and_support_are_the_posed_route(O, gn_reps):
+    """icp_batched and scene_support through K1's corr_fn on the CPU give
+    bitwise what they gave when the ICP posed the clouds with se3 and
+    handed them to the search: a single object (O = 1, unlifted) and a
+    library of 3, whose model clouds are read from a slice."""
+    poses0, scene, scene_n, w, model, normals = _icp_problem(O, 5)
+    km = 160
+    args = (scene, scene_n, w, model[:, :km], normals[:, :km])
+    if O == 1:
+        poses0, args = poses0[0], tuple(a[0] for a in args)
+    kw = dict(iters=6, max_corresp_dist=0.02, gn_reps=gn_reps, support_tau=0.004)
+    out = icp.icp_batched(poses0, *args, corr_fn=knn_cuda.make_corr_fn(), **kw)
+    ref = icp.icp_batched(poses0, *args, corr_fn=_posed_corr_fn, **kw)
+    assert torch.equal(out[0], ref[0])
+    assert all(torch.equal(a, b) for a, b in zip(out[1], ref[1]))
+    assert bool((out[1].inliers > 6.0).all())
+    sup_args = (args[0], args[2], args[3], args[4])
+    sup = icp.scene_support(out[0], *sup_args, tau=0.004, corr_fn=knn_cuda.make_corr_fn())
+    sup_ref = icp.scene_support(out[0], *sup_args, tau=0.004, corr_fn=_posed_corr_fn)
+    assert torch.equal(sup, sup_ref) and bool((sup > 0.5).all())

@@ -10,7 +10,11 @@ are held here
   atol 1e-6, wsum and hits rtol 1e-5, wrr rtol 1e-4 / atol 1e-8;
 - against a loop of ungrouped calls, one per object: bitwise;
 - and through the drop-ins (`make_corr_fn`, `make_nn_fn`, `make_gn_fn`) in
-  the library form that ops/icp.py hands them ([O,P,Nm,3] posed clouds).
+  the library form that ops/icp.py hands them ([O,P,4,4] poses with
+  [O,Nm,3] model clouds for K1, [O,P,Nm,3] posed clouds for K2 and K3).
+
+K1 takes the poses and the model clouds and poses them itself; the Pallas
+kernels take the clouds posed by `se3.transform_points` / `rotate_vectors`.
 
 Inputs come from numpy with a seed.
 """
@@ -24,6 +28,7 @@ import torch
 
 from icra20_hand_object_pose_tpu.ops import knn_pallas
 from icra20_hand_object_pose_tpu_torch.ops import knn_cuda
+from icra20_hand_object_pose_tpu_torch.utils import se3
 
 torch.set_num_threads(2)
 MIN_COS = math.cos(math.radians(60.0))
@@ -53,6 +58,20 @@ def _clouds(O, Pp, Ns, Nm, seed, ties=False):
     return q, r, _unit(g, (O, Pp, Nm, 3))
 
 
+def _library(O, Pp, Ns, Nm, seed, ties=False):
+    """K1's library inputs: queries [O,Ns,3], poses [O,Pp,4,4], model
+    clouds and normals [O,Nm,3] (with `ties` the second half of every cloud
+    repeats the first), and the clouds and normals posed by se3
+    [O,Pp,Nm,3]."""
+    q, r, n = map(_t, _clouds(O, 1, Ns, Nm, seed, ties=ties))
+    g = np.random.default_rng(seed + 1)
+    w = _t(g.normal(scale=0.6, size=(O, Pp, 3)))
+    poses = se3.make_pose(se3.so3_exp(w), _t(g.uniform(-0.1, 0.1, (O, Pp, 3))))
+    m, mn = r[:, 0], n[:, 0]
+    return (q, poses, m, mn, se3.transform_points(poses, m[:, None]),
+            se3.rotate_vectors(poses, mn[:, None]))
+
+
 def _scene(O, Ns, seed):
     """K3's per-object scenes: points, normals (every 7th missing) and
     weights (a fifth padding); the last object nearly empty."""
@@ -66,13 +85,13 @@ def _scene(O, Ns, seed):
 
 @pytest.mark.parametrize("O,Pp,Ns,Nm", SHAPES)
 def test_grouped_nn_gather_matches_vmapped_pallas(O, Pp, Ns, Nm):
-    q, r, n = _clouds(O, Pp, Ns, Nm, seed=Ns)
+    q, poses, model, model_n, r, n = _library(O, Pp, Ns, Nm, seed=Ns)
     ref = jax.vmap(lambda qq, rr, nn: knn_pallas.nn_gather_batched(
         qq[None], rr, nn, tile_s=64, tile_m=64, interpret=True))(
             jnp.asarray(q), jnp.asarray(r), jnp.asarray(n))
     rm, rn, rd2, ridx = (np.asarray(a).reshape((O * Pp,) + a.shape[2:]) for a in ref)
-    m, nm, d2, idx = knn_cuda.nn_gather_batched(
-        _t(q), _t(r.reshape(O * Pp, Nm, 3)), _t(n.reshape(O * Pp, Nm, 3)))
+    m, nm, d2, idx = (t.reshape((O * Pp,) + t.shape[2:])
+                      for t in knn_cuda.nn_gather_batched(q, poses, model, model_n))
     assert idx.dtype == torch.int32 and idx.shape == (O * Pp, Ns)
     np.testing.assert_array_equal(idx.numpy(), ridx)
     np.testing.assert_allclose(d2.numpy(), rd2, rtol=1e-3, atol=1e-7)
@@ -119,16 +138,18 @@ def test_grouped_nn_gn_matches_vmapped_pallas(O, Pp, Ns, Nm):
 def test_grouped_plain_equals_loop_of_ungrouped_calls(O, Pp, Ns, Nm, ties):
     """One grouped call is bitwise the O ungrouped calls, ties included
     (the first minimal index wins in both)."""
-    q, r, n = map(_t, _clouds(O, Pp, Ns, Nm, seed=3, ties=ties))
+    q, poses, model, model_n, r, n = _library(O, Pp, Ns, Nm, seed=3, ties=ties)
     sn, w = map(_t, _scene(O, Ns, seed=4))
     rf, nf = r.reshape(O * Pp, Nm, 3), n.reshape(O * Pp, Nm, 3)
-    k1 = knn_cuda.nn_gather_batched(q, rf, nf)
+    k1 = tuple(t.reshape((O * Pp,) + t.shape[2:])
+               for t in knn_cuda.nn_gather_batched(q, poses, model, model_n))
     k2 = knn_cuda.nn_batched(q, rf)
     k3 = knn_cuda.nn_gn_batched(q, sn, w, rf, nf, **GATES)
     for o in range(O):
         sl = slice(o * Pp, (o + 1) * Pp)
         for grouped, alone in (
-                (k1, knn_cuda.nn_gather_batched(q[o:o + 1], r[o], n[o])),
+                (k1, knn_cuda.nn_gather_batched(q[o:o + 1], poses[o], model[o],
+                                                model_n[o])),
                 (k2, knn_cuda.nn_batched(q[o:o + 1], r[o])),
                 (k3, knn_cuda.nn_gn_batched(q[o], sn[o], w[o], r[o], n[o], **GATES))):
             assert all(torch.equal(a[sl], b) for a, b in zip(grouped, alone))
@@ -138,16 +159,17 @@ def test_grouped_plain_equals_loop_of_ungrouped_calls(O, Pp, Ns, Nm, ties):
 
 
 def test_drop_ins_take_the_library_form():
-    """corr_fn / nn_fn / gn_fn on [O,P,Nm,3] posed clouds with one scene per
-    object, or one for all, return [O,P,...] tensors equal to the folded
-    wrapper calls."""
+    """corr_fn on [O,P,4,4] poses with [O,Nm,3] model clouds, and nn_fn /
+    gn_fn on [O,P,Nm,3] posed clouds, with one scene per object, or one for
+    all, return [O,P,...] tensors equal to the folded plain calls on the
+    clouds posed by se3."""
     O, Pp, Ns, Nm = 3, 4, 37, 73
-    q, r, n = map(_t, _clouds(O, Pp, Ns, Nm, seed=11))
+    q, poses, model, model_n, r, n = _library(O, Pp, Ns, Nm, seed=11)
     sn, w = map(_t, _scene(O, Ns, seed=12))
     rf, nf = r.reshape(O * Pp, Nm, 3), n.reshape(O * Pp, Nm, 3)
     for query in (q, q[:1]):
-        out = knn_cuda.make_corr_fn()(query, r, n)
-        ref = knn_cuda.nn_gather_batched(query, rf, nf)
+        out = knn_cuda.make_corr_fn()(query, poses, model, model_n)
+        ref = knn_cuda.nn_gather_plain(query, rf, nf)
         assert out[0].shape == (O, Pp, Ns, 3) and out[2].shape == (O, Pp, Ns)
         assert all(torch.equal(a.reshape(b.shape), b) for a, b in zip(out, ref))
         out = knn_cuda.make_nn_fn()(query, r)
@@ -160,11 +182,11 @@ def test_drop_ins_take_the_library_form():
 
 
 def test_grouped_shapes_are_validated():
-    q, r, n = map(_t, _clouds(3, 4, 20, 30, seed=1))
+    q, poses, model, model_n, r, n = _library(3, 4, 20, 30, seed=1)
     sn, w = map(_t, _scene(3, 20, seed=2))
     rf, nf = r.reshape(12, 30, 3), n.reshape(12, 30, 3)
     with pytest.raises(ValueError, match="does not divide"):
-        knn_cuda.nn_gather_batched(q[:2].repeat(3, 1, 1)[:5], rf, nf)
+        knn_cuda.nn_gather_batched(q[:2].repeat(3, 1, 1)[:5], poses, model, model_n)
     with pytest.raises(ValueError, match="does not divide"):
         knn_cuda.nn_batched(q[:2].repeat(3, 1, 1)[:5], rf)
     with pytest.raises(ValueError, match="does not divide"):

@@ -144,7 +144,7 @@ def _by_name(kernel, values) -> dict:
 def _all_six(z, torch):
     """One call of each of K1-K6's wrappers at tiny shapes; their shape
     keys by wrapper."""
-    knn_cuda.nn_gather_batched(z(1, 8, 3), z(4, 16, 3), z(4, 16, 3))
+    knn_cuda.nn_gather_batched(z(1, 8, 3), z(4, 4, 4), z(16, 3), z(16, 3))
     knn_cuda.nn_batched(z(2, 8, 3), z(4, 16, 3))
     knn_cuda.nn_gn_batched(z(8, 3), z(8, 3), z(8), z(4, 16, 3), z(4, 16, 3), maxd2=1e-4,
                            min_cos=0.5)
@@ -184,8 +184,8 @@ def test_capture_launches_count_once_per_replay(monkeypatch):
     k6 = (8, 8, 6, 5, "take", False)                    # K6's (P, N, H, W, rule, subpixel)
 
     def body(src, query, ref):
-        knn_cuda.nn_gather_batched(query, ref, ref)
-        knn_cuda.nn_gather_batched(query, ref, ref)
+        knn_cuda.nn_gather_batched(query, z(4, 4, 4), ref[0], ref[0])
+        knn_cuda.nn_gather_batched(query, z(4, 4, 4), ref[0], ref[0])
         knn_cuda.nn_gn_batched(query[0], query[0], z(8), ref, ref, maxd2=1e-4,
                                min_cos=0.5)
         knn_cuda.project_compare_batched(
