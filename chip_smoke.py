@@ -15,6 +15,7 @@
                                            # pixel-mode case and phase 18
     python3 chip_smoke.py --points-only    # build + K6's phase, phase 15's
                                            # bitwise library cases and phase 18
+    python3 chip_smoke.py --identify-only  # build + phase 19
     scripts/kernel_ab.sh A B OUT           # kernel phases of two checkouts
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -298,7 +299,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      estimate call, each before and after a profiled replayed frame and an
      eager one (their idle share and ATen calls), each with the card's
      name and power limit; a {"programs": ...} JSON line;
-  19. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
+  19. library identification: the benchmark's identify cell
+     (identify.t42_identify8_vga: one VGA frame of the held box a step, the
+     8 catalogued models as candidates, LibrarySweep(shared_scene=True)
+     through its programs) served and recorded from its first step on,
+     IDENTIFY_STEPS steps (portbench/identify_check.py): no step names
+     another candidate than the box, and every step from IDENTIFY_NAMED_BY
+     on names it; every program
+     call of them bitwise its eager replay (`_sweep_step` on the same
+     seeds, so the shared-scene programs over 8 distinct models, their ROI
+     radii and padded symmetry groups); every candidate's identification
+     score within IDENTIFY_SCORE_TOL of the plain reference's
+     (portbench/reference/identify.py, on the frame as the program
+     prepared it, at the pose the step served); the reference's own rule
+     over its own scores from the first step names as the program wherever
+     its lead lies further from the rule's than the summed tolerance, and
+     the program's summed scores are the reference's within it; K1's
+     launches one query for all at checked shapes; ms a tracked and a
+     mixed step, the memory peak, the card's name and power limit; a
+     {"identify": ...} JSON line;
+  20. prints the kernels' JSON line, then {"ok": true, "device": ...} last.
 
 Every phase prints its seconds.
 
@@ -381,8 +401,11 @@ BENCH_SWEEP_SHAPES = [(LIB * 128, LIB, 512, 256), (LIB * 8, LIB, 512, 256)]
 BLIND_SIZES = (2, 32, 64)
 BLIND_VARIANTS_64 = ("default", "fused_gn")
 BLIND_SHAPES = [(O * P, O, Ns, Nm) for O in BLIND_SIZES for P, Ns, Nm in NN_SHAPES[:3]]
+# and the shared-scene library's identification score: each candidate's
+# served pose against the whole cloud (one pose a candidate, one query)
+IDENTIFY_SHAPES = [(LIB, 1, 2048, 1024)]
 NN_GROUPED = ([(P, Pq, Ns, Nm) for P, Ns, Nm in LIB_SHAPES for Pq in (1, LIB)]
-              + BENCH_SWEEP_SHAPES + BLIND_SHAPES + [(12, 3, 37, 73)])
+              + BENCH_SWEEP_SHAPES + BLIND_SHAPES + IDENTIFY_SHAPES + [(12, 3, 37, 73)])
 # the per-shard shapes of phase 14 (P, B, Ns, Nm): a tracked frame whose swarm
 # is split over 2 ranks (in-scan and explorer at 256 particles a rank; the
 # polish keeps 18 candidates); the sweep of LIB objects over 2 ranks (tracked
@@ -480,6 +503,17 @@ K5_FITNESS_TOL = 1e-5
 # (the tracked scan's and the finisher's), and the tolerances
 # (tests/test_torch_project_compare.py says why)
 POINT_CELL = "track.t42_box_vga"
+# phase 19: the identify cell, its seed, the steps recorded from the first,
+# the step by which the box has to be named; the scores' tolerance against the plain
+# reference: K6 parts from its plain version by up to 1e-6 in a fitness and
+# 1e-5 x max(support, 1) in a support sum (K6_*_TOL), the reference poses by
+# explicit sums (a sample within rounding of a pixel's edge may read
+# another pixel), K1's distances are bitwise its plain version's
+IDENTIFY_CELL = "identify.t42_identify8_vga"
+IDENTIFY_SEED = 2147483951
+IDENTIFY_STEPS = 64
+IDENTIFY_NAMED_BY = 48
+IDENTIFY_SCORE_TOL = 1e-4
 K6_RULES = {("image", False), ("take", False), ("take", True), ("patch", True)}
 K6_SWEEP = ((512, 512, 120, 160, "image", False), (512, 2048, 480, 640, "patch", True))
 K6_SUPPORT_TOL = 1e-5
@@ -3525,6 +3559,78 @@ def estimate_eager(est, args, mode: str):
     return type(est)._frame_step(est, *dyn, **static).pose.cpu()
 
 
+def identify_phase(knn_cuda, dev, smi: str) -> dict:
+    """Phase 19 (module docstring): the identify cell's timed path, its
+    recorded steps held against their eager replays and the plain
+    reference."""
+    import statistics
+
+    import torch
+
+    from portbench import generator, harness, identify_check, loops
+    from portbench.spans import Spans
+
+    _, config, mix = harness.load_cell(IDENTIFY_CELL)
+    traffic = generator.make(config, mix, IDENTIFY_SEED, dev)
+    loop = loops.load(traffic.loop).Loop(config, traffic, IDENTIFY_SEED, dev, Spans())
+    rec = identify_check.Recorder(loop)
+    reset_counts(knn_cuda)
+    torch.cuda.reset_peak_memory_stats()
+    rec.on = True
+    tracked, mixed = [], []
+    for i in range(IDENTIFY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.serve(i)
+        ms = 1e3 * (time.perf_counter() - t0)
+        if i >= 2:      # past the captures
+            (mixed if bool(rec.steps[-1]["result"].reinitialized.any())
+             else tracked).append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    check_grouped(knn_cuda, "K1", "identify path")
+    check_shapes(knn_cuda, "identify path")
+    named = [int(st["result"].named) for st in rec.steps]
+    first = next((t for t, n in enumerate(named) if n == loop.held), len(named))
+    check(all(n in (-1, loop.held) for n in named)
+          and all(n == loop.held for n in named[IDENTIFY_NAMED_BY:]),
+          f"identify: the steps named {named}: not none or the held box ({loop.held}), "
+          f"or not the box on every step from {IDENTIFY_NAMED_BY} on")
+    t0 = time.perf_counter()
+    steps = identify_check.judge([identify_check.rescore(loop.sweep, st) for st in rec.steps],
+                                 IDENTIFY_SCORE_TOL)
+    ref_s = time.perf_counter() - t0
+    parted = [st["parting"] for st in steps if any(st["parting"])]
+    check(not parted, f"identify: program calls part from their eager replays: {parted}")
+    diff = max(abs(a - b) for st in steps for a, b in zip(st["port"], st["reference"]))
+    check(diff <= IDENTIFY_SCORE_TOL, f"identify: scores part from the reference by "
+          f"{diff:.3e} > {IDENTIFY_SCORE_TOL}")
+    sum_diff = max(abs(a - b) / (t + 1) for t, st in enumerate(steps)
+                   for a, b in zip(st["sums"], st["reference_sums"]))
+    check(sum_diff <= IDENTIFY_SCORE_TOL, f"identify: summed scores part from the "
+          f"reference's by {sum_diff:.3e} a step > {IDENTIFY_SCORE_TOL}")
+    judged = [st for st in steps if st["judged"]]
+    check(bool(judged) and all(st["named"] == st["reference_named"] for st in judged),
+          f"identify: the reference named {[st['reference_named'] for st in judged]}, "
+          f"the program {[st['named'] for st in judged]}")
+    calls = sum(len(st["calls"]) for st in rec.steps)
+    out = dict(steps=len(steps), calls=calls, max_score_diff=diff, max_sum_diff=sum_diff,
+               first_named=first, leads=[round(st["lead"], 4) for st in steps],
+               judged=len(judged), mixed_steps=sum(any(st["restarted"]) for st in steps),
+               tracked_ms=statistics.median(tracked) if tracked else None,
+               mixed_ms=statistics.median(mixed) if mixed else None,
+               memory_peak_bytes=peak, reference_s=ref_s, card=smi)
+    print(f"identify: {len(steps)} steps recorded from the first ({calls} program calls, "
+          f"{out['mixed_steps']} mixed), none named before step {first}, the box first "
+          f"there, no other ever; every call bitwise its eager replay; scores within {diff:.2e} of the "
+          f"reference, sums within {sum_diff:.2e} a step, its pick the program's on "
+          f"{len(judged)} steps; "
+          f"reference {ref_s:.1f} s; a tracked step {out['tracked_ms']} ms, a mixed one "
+          f"{out['mixed_ms']} ms (medians), peak {peak / 2 ** 30:.2f} GiB; {smi}",
+          flush=True)
+    print(json.dumps({"identify": out}), flush=True)
+    return out
+
+
 def profile_phases(dev) -> None:
     """scripts/profile_phases_torch.py's main on the card."""
     _script("profile_phases_torch").main(device=dev)
@@ -3577,6 +3683,10 @@ def main(argv: list[str]) -> int:
         lb = run_phase("10 library", library_phase, sc, knn_cuda, dev, None)
         run_phase("15 blind paths", blind_phase, lb, sc, knn_cuda, dev)
         run_phase("18 compiled programs", programs_phase, sc, knn_cuda, dev, smi)
+        print(smi, flush=True)
+        return 0
+    if "--identify-only" in argv:
+        run_phase("19 identification", identify_phase, knn_cuda, dev, smi)
         print(smi, flush=True)
         return 0
     if "--pixel-only" in argv:
@@ -3640,6 +3750,7 @@ def main(argv: list[str]) -> int:
         gate_launches = run_phase("17 accuracy gates", gates_phase, sq, knn_cuda, dev)
     program_launches = run_phase("18 compiled programs", programs_phase, sc, knn_cuda,
                                  dev, smi)
+    run_phase("19 identification", identify_phase, knn_cuda, dev, smi)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{

@@ -117,4 +117,5 @@ def sweep_state_from_numpy(state, *, seed: int = 0,
         hyp_fitness=tensor("hyp_fitness", f32),
         prev_poses=tensor("prev_poses", f32), vel_ok=tensor("vel_ok", b),
         pose_tracked=tensor("pose_tracked", b),
+        score_sum=tensor("score_sum", torch.float64),
     )

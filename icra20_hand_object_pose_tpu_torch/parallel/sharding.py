@@ -39,6 +39,8 @@ Every rank returns the whole result.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -48,6 +50,7 @@ import torch.distributed as dist
 from ..models.estimator import Estimator, FrameResult, _ckpt_path, _generator, _split
 from ..models.hand import HandModel
 from ..models.object_model import ObjectModel
+from ..ops import icp, pso, score
 from ..utils import profiling, program, rng, se3
 from ..utils.config import EstimatorConfig
 from .mesh import all_gather, is_writer, make_mesh, mesh_axis  # noqa: F401
@@ -70,6 +73,9 @@ class SweepState(NamedTuple):
                                              # endpoints tracked frames)
     pose_tracked: torch.Tensor | None = None  # [O] bool: `poses` from a
                                               # tracked (not init) frame
+    score_sum: torch.Tensor | None = None    # shared scene: [O] float64, each
+                                             # candidate's identification scores
+                                             # summed since the state began
 
 
 class SweepResult(NamedTuple):
@@ -79,6 +85,38 @@ class SweepResult(NamedTuple):
     reinitialized: torch.Tensor  # [O] bool: which objects re-registered
     hyp_poses: torch.Tensor | None = None    # [O,H,4,4] when n_hypotheses > 1
     hyp_fitness: torch.Tensor | None = None  # [O,H]
+    named: torch.Tensor | None = None        # shared scene: the candidate
+                                             # named, an int64 scalar on the
+                                             # device, -1 while none is
+    score: torch.Tensor | None = None        # shared scene: [O] each
+                                             # candidate's identification score
+
+
+# a shared-scene program's result: FrameResult's fields, then each
+# candidate's identification score [O]
+SharedFrameResult = collections.namedtuple("SharedFrameResult",
+                                           FrameResult._fields + ("score",))
+
+
+# how far, in summed identification score, the named candidate has to lead
+# every other. The scores of the steps since the state began are summed: a
+# run of frames that tells the candidates apart by ~0.02-0.04 a step names
+# one within tens of steps, and the few frames that fit a wrong one better
+# cannot name it. At VGA a wrong candidate led the sums by up to 1.0 in a
+# grasp's first 10 steps (16 seeds, PERF.md section 6): twice that
+IDENTIFY_LEAD = 2.0
+
+
+def identify(score_sum: torch.Tensor) -> torch.Tensor:
+    """The candidate named from each candidate's summed identification
+    scores [O]: the highest sum where it leads every other by more than
+    IDENTIFY_LEAD, else -1 (none named yet; so on a tie). An int64 scalar,
+    on the device; no host read."""
+    best = torch.argmax(score_sum)
+    others = torch.where(torch.arange(score_sum.shape[0], device=score_sum.device) == best,
+                         float("-inf"), score_sum)
+    lead = score_sum[best] - torch.amax(others)
+    return torch.where(lead > IDENTIFY_LEAD, best, torch.full_like(best, -1))
 
 
 def frame_seeds(key: int, n_objects: int) -> tuple[int, list[int], list[int]]:
@@ -97,7 +135,18 @@ class LibrarySweep:
     takes an unbatched depth [H,W] / hand_base [4,4] / hand_q [J], the
     object-independent frame work (`Estimator._scene_prep`) runs once, and
     every object searches that one scene. Object 0's result is bitwise the
-    per-scene path's fed O copies of the frame with the same seeds.
+    per-scene path's fed O copies of the frame with the same seeds. Each
+    step names the candidate in the hand (`SweepResult.named`, on the
+    device) once the evidence suffices: the one whose identification
+    scores, summed over the state's steps, lead every other's by more than
+    IDENTIFY_LEAD (`identify`); until one does, -1, and no candidate is
+    named. One frame can fit two models alike (a face of the box and of the
+    step prism), a run of frames rarely does. The identification score
+    (`_identify_score`, inside the programs) is the search's own scoring of
+    the pose each candidate serves, taken anew and alike for every
+    candidate against the one prepared frame. A new grasp starts from a
+    new state (`init_state`), as it has to for the poses too: the sums are
+    never restarted within a state.
 
     With `mesh` (make_mesh), this rank runs the objects of its index along
     `axis_name`, O / n of them, from the seeds a one-process sweep gives
@@ -230,10 +279,47 @@ class LibrarySweep:
             preps = [est._scene_prep(g, depths[o], hand_bases[o], hand_qs[o],
                                      init_scoring)
                      for o, g in enumerate(gens.sources)]
-        return est._search(
-            gens, est._stack_preps(preps),
-            prev if prev.dim() == 4 else prev[:, None],
+        prep = est._stack_preps(preps)
+        out = est._search(
+            gens, prep, prev if prev.dim() == 4 else prev[:, None],
             self._obj_tensors, init_scoring=init_scoring, **search)
+        if not self.shared_scene:
+            return out
+        return SharedFrameResult(*out, self._identify_score(prep, out.pose))
+
+    def _identify_score(self, prep: tuple, poses: torch.Tensor) -> torch.Tensor:
+        """Each candidate's identification score [n] at its pose [n,4,4]:
+        the full-resolution tier's projective fitness (fitness plus
+        `coverage_weight` x coverage, the polish's scoring) plus
+        `scene_cov_weight` x (the share of the frame's scene cloud that the
+        posed model explains within `scene_cov_tau` - 1). Every candidate is
+        scored alike: on the prepared frame's whole cloud (no crop), without
+        the tracked scan's self-occlusion mask or the init's coverage
+        exemption. Unlike the search's own fitness, whose support term
+        comes from its last correspondence search, before the polish's last
+        update and the finisher's moves, it scores the pose served."""
+        est, sc, cam = self._est, self.cfg.score, self.cfg.camera
+        scene, weights, _, hd_hi, _ = prep
+        model_pts, model_normals, render_pts, render_normals, render_w = \
+            self._obj_tensors[:5]
+        sc_hi = (dataclasses.replace(sc, depth_tau=sc.depth_tau_fine)
+                 if sc.depth_tau_fine > 0 else sc)
+        fit, _ = pso.score_particles(
+            poses[:, None], render_pts, render_normals, render_w,
+            scene.depth_full, scene.valid_full, hd_hi,
+            fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+            height=cam.height, width=cam.width, splat_radius=1,
+            score_cfg=sc_hi, subpixel=sc.subpixel, tier="full",
+            observed_enc=score.encode_observed(
+                scene.depth_full, scene.valid_full, sc.ghost_dilate,
+                neutral=scene.neutral_full))
+        if sc.scene_cov_weight > 0.0:
+            supp = icp.scene_support(
+                poses[:, None], scene.points, weights.expand(poses.shape[0], -1),
+                model_pts, model_normals, tau=sc.scene_cov_tau,
+                nn_fn=est.nn_fn, corr_fn=est.corr_fn)
+            fit = fit + sc.scene_cov_weight * (supp - 1.0)
+        return fit[:, 0]
 
     @torch.no_grad()
     def _run(self, keys, depths, prev, hand_bases, hand_qs, mode: str) -> FrameResult:
@@ -280,6 +366,7 @@ class LibrarySweep:
         O, dev = self.n_objects, self.device
         H = self.cfg.tracker.n_hypotheses
         eye = torch.eye(4, device=dev)
+        shared = self.shared_scene
         return SweepState(
             poses=eye.repeat(O, 1, 1),
             fitness=torch.zeros((O,), device=dev),
@@ -293,6 +380,7 @@ class LibrarySweep:
             prev_poses=eye.repeat(O, 1, 1),
             vel_ok=torch.zeros((O,), dtype=torch.bool, device=dev),
             pose_tracked=torch.zeros((O,), dtype=torch.bool, device=dev),
+            score_sum=torch.zeros((O,), dtype=torch.float64, device=dev) if shared else None,
         )
 
     def _prep(self, state: SweepState):
@@ -334,12 +422,14 @@ class LibrarySweep:
     def _merge(self, m, out_t: FrameResult | None, out_i: FrameResult | None):
         """Per-frame glue, part 2: this rank's results of the track and init
         programs merged by its objects' watchdog mask `m`: (pose, fitness,
-        coverage, hyp_poses, hyp_fitness), the last two None when H = 1."""
+        coverage, hyp_poses, hyp_fitness, score), the hypotheses None when
+        H = 1, the identification score None without a shared scene."""
         H = self.cfg.tracker.n_hypotheses
         if out_t is None or out_i is None:
             out = out_i if out_t is None else out_t
             hyp = (out.hyp_poses, out.hyp_fitness) if H > 1 else (None, None)
-            return (out.pose, out.fitness, out.coverage) + hyp
+            return (out.pose, out.fitness, out.coverage) + hyp + (
+                out.score if self.shared_scene else None,)
 
         def sel(a, b):
             return torch.where(m.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
@@ -347,17 +437,20 @@ class LibrarySweep:
         hyp = ((sel(out_i.hyp_poses, out_t.hyp_poses),
                 sel(out_i.hyp_fitness, out_t.hyp_fitness)) if H > 1
                else (None, None))
+        scores = sel(out_i.score, out_t.score) if self.shared_scene else None
         return (sel(out_i.pose, out_t.pose), sel(out_i.fitness, out_t.fitness),
-                sel(out_i.coverage, out_t.coverage)) + hyp
+                sel(out_i.coverage, out_t.coverage)) + hyp + (scores,)
 
     def _gather(self, merged: tuple) -> tuple:
         """Every rank's merged results along the object axis, in object
-        order: one all_gather of the fields packed [O/n, 18 + 17 H]."""
-        pose, fitness, coverage, hyp_p, hyp_f = merged
+        order: one all_gather of the fields packed [O/n, 18 + 17 H (+ 1)]."""
+        pose, fitness, coverage, hyp_p, hyp_f, scores = merged
         n = pose.shape[0]
         fields = [pose.reshape(n, 16), fitness[:, None], coverage[:, None]]
         if hyp_p is not None:
             fields += [hyp_p.reshape(n, -1), hyp_f]
+        if scores is not None:
+            fields.append(scores[:, None])
         packed = all_gather(torch.cat(fields, dim=1), self._group)
         packed = packed.reshape(self.n_objects, -1)
         pose, fitness, coverage = (packed[:, :16].reshape(-1, 4, 4),
@@ -365,16 +458,26 @@ class LibrarySweep:
         if hyp_p is not None:
             H = hyp_f.shape[1]
             hyp_p = packed[:, 18:18 + 16 * H].reshape(-1, H, 4, 4)
-            hyp_f = packed[:, 18 + 16 * H:]
-        return pose, fitness, coverage, hyp_p, hyp_f
+            hyp_f = packed[:, 18 + 16 * H:18 + 17 * H]
+        if scores is not None:
+            scores = packed[:, -1]
+        return pose, fitness, coverage, hyp_p, hyp_f, scores
 
     def _finish(self, state: SweepState, key, need_init, pose, fitness,
-                coverage, hyp_p, hyp_f):
+                coverage, hyp_p, hyp_f, scores=None):
         """Per-frame glue, part 3: the next state and the result from every
-        object's merged results."""
+        object's merged results; with a shared scene, the candidate named."""
         O = self.n_objects
         H = self.cfg.tracker.n_hypotheses
         tracked = ~need_init
+        named = score_sum = None
+        if self.shared_scene:
+            with profiling.span("sweep.identify"):
+                score_sum = scores.double() + (
+                    state.score_sum if state.score_sum is not None else 0.0)
+                named = identify(score_sum)
+                profiling.count("identify.steps")
+                profiling.count_changes("identify.changes", named)
         was_tracked = (state.pose_tracked if state.pose_tracked is not None
                        else torch.zeros((O,), dtype=torch.bool, device=self.device))
         new_state = SweepState(
@@ -391,12 +494,15 @@ class LibrarySweep:
             prev_poses=state.poses,
             vel_ok=tracked & was_tracked,
             pose_tracked=tracked,
+            score_sum=score_sum,
         )
         return new_state, SweepResult(
             poses=pose, fitness=fitness, coverage=coverage,
             reinitialized=need_init,
             hyp_poses=hyp_p if H > 1 else None,
             hyp_fitness=hyp_f if H > 1 else None,
+            named=named,
+            score=scores,
         )
 
     def step(
@@ -474,7 +580,7 @@ class LibrarySweep:
             return
         extra = {}
         for name in ("coverage", "hyp_poses", "hyp_fitness", "prev_poses",
-                     "vel_ok", "pose_tracked"):
+                     "vel_ok", "pose_tracked", "score_sum"):
             v = getattr(state, name)
             if v is not None:
                 extra[name] = v.cpu().numpy()

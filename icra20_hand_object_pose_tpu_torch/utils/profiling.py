@@ -25,7 +25,10 @@
       * counters (`count`), among them those counted inside a traced
         function (the scorer's particles by scoring tier:
         `score.points.coarse` and `.full` in point mode,
-        `score.renders.coarse` and `.full` in pixel mode); and on the card
+        `score.renders.coarse` and `.full` in pixel mode), and counts of
+        a device value's changes from call to call (`count_changes`: a
+        shared-scene library's named candidate), compared at the snapshot
+        so that no call reads the card; and on the card
         each program call's device interval (timing events around its
         input copies, replay and output clones), put on the host clock by
         an anchor event at `reset`: the card's idle gaps named by the host
@@ -202,6 +205,14 @@ def count(name: str, n: int = 1) -> None:
     """Adds `n` to the counter `name`."""
     if _ON:
         _COUNTS[name] += n
+
+
+def count_changes(name: str, value: torch.Tensor) -> None:
+    """Counts under `name` the calls whose `value` (a device scalar)
+    differs from the call before's; read at the snapshot, so no call reads
+    the card."""
+    if _ON:
+        TRACER.choices[name].append(value.detach().reshape(1))
 
 
 def launched(kernel: str, shape: tuple) -> None:
@@ -390,6 +401,7 @@ class Tracer:
         self.clock = clock
         self.gen = 0
         self._mode = _EAGER
+        self.last_choice: dict = {}   # count_changes' last value read, by name
         self.reset()
 
     def reset(self) -> None:
@@ -400,6 +412,7 @@ class Tracer:
         for name in [k for k in _COUNTS if type(k) is str]:
             del _COUNTS[name]
         self.stage_ms = dict.fromkeys(STAGES, 0.0)
+        self.choices = defaultdict(list)   # count_changes' values not read
         self.runs: list = []      # (frame, its stages in order) of each run read
         self.unread: dict = {}    # id(marks) -> (marks, frame): replays not read
         self.eager: list = []     # (marks, frame): eager runs on the card not read
@@ -550,6 +563,18 @@ class Tracer:
                     split[self.open_at(0.5 * (c0 + c1))] += c1 - c0
         return dict(at_start), dict(split)
 
+    def _read_choices(self) -> None:
+        """`count_changes`' values into their counters: each against the
+        one before, the first against the last read (across a reset)."""
+        for name, values in self.choices.items():
+            if not values:
+                continue
+            seq = torch.cat(([self.last_choice[name]] if name in self.last_choice
+                             else []) + values)
+            _COUNTS[name] += int((seq[1:] != seq[:-1]).sum())
+            self.last_choice[name] = seq[-1:]
+        self.choices.clear()
+
     def snapshot(self, t_end: float | None = None) -> dict:
         """The readings since the reset, up to `t_end` (now): the frames,
         span totals, counters, stage ms (the replays' read first; waits for
@@ -571,6 +596,9 @@ class Tracer:
           - `wasted_slot_share`: % of the object-slots the programs ran
             that went to the init program for an object that did not need
             it (0 when no init ran);
+          - `identify_change_share`: % of a shared-scene library's steps
+            whose named candidate differs from the step before's (absent
+            without such a step);
           - `idle_ms`: the card's idle ms (absent without program calls on
             the card).
 
@@ -582,6 +610,7 @@ class Tracer:
             self._read(*got)
         self.unread.clear()
         self.eager.clear()
+        self._read_choices()
         spans = self.span_totals(t_end)
         gaps = self.gaps(t_end)
         idle, idle_split = self.idle(gaps) if gaps is not None else (None, None)
@@ -602,6 +631,9 @@ class Tracer:
             slots = c["slots.init"] + c["slots.track"]
             per["wasted_slot_share"] = (
                 100.0 * (c["slots.init"] - c["init.needed"]) / slots if slots else 0.0)
+            if c["identify.steps"]:
+                per["identify_change_share"] = (100.0 * c["identify.changes"]
+                                                / c["identify.steps"])
             if idle is not None:
                 per["idle_ms"] = 1e3 * sum(idle.values()) / f
         return {"frames": f, "seconds": t_end - self.t_reset, "spans": spans,

@@ -13,7 +13,9 @@ around each program call (`portbench/spans.py`). Prints one JSON line:
 `frame_ms`, `program_ms` (the benchmark's card ms per frame in the program
 calls) and `device_idle_share`, the tracer's per-frame readings
 (`per_frame`: the five stages, `kernels_per_frame`, `launch_ms`,
-`init_step_share`, `wasted_slot_share`, `idle_ms`, and the scorer's
+`init_step_share`, `wasted_slot_share`, in a library identification cell
+`identify_change_share` (% of steps whose named candidate changed),
+`idle_ms`, and the scorer's
 particles by tier: in point mode `coarse_points_per_frame` and
 `full_points_per_frame`, in pixel mode `coarse_renders_per_frame` and
 `full_renders_per_frame`), the kernels' launches in the window per frame
